@@ -1,0 +1,114 @@
+"""JAX tracker params -> the port's state_dict.
+
+`tracker_state_dict_from_jax` inverts vggsfm_tpu/models/convert.py's
+`convert_tracker` (its :81-153): HWIO -> OIHW convs, (in, out) -> (out, in)
+linears, the packed ``in_proj`` -> ``in_proj_weight``/``in_proj_bias``,
+``norm_scale``/``norm_bias`` -> ``norm.weight``/``norm.bias``, and the
+reference's Sequential indices (``ffeat_updater.0``, ``vis_predictor.0``,
+``downsample.0``) and key typo ``virual_tracks``. The resulting keys and
+shapes are the reference checkpoint's ``track_predictor.*`` entries with
+the prefix stripped, so `TrackerPredictor.load_state_dict` takes either.
+
+Pure numpy in, torch tensors out; no JAX import.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _dense(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.transpose(p["kernel"], (1, 0)))
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _mha(sd, prefix, p):
+    sd[f"{prefix}.in_proj_weight"] = _t(np.transpose(p["in_proj"]["kernel"],
+                                                     (1, 0)))
+    sd[f"{prefix}.in_proj_bias"] = _t(p["in_proj"]["bias"])
+    _dense(sd, f"{prefix}.out_proj", p["out_proj"])
+
+
+def _mlp(sd, prefix, p):
+    _dense(sd, f"{prefix}.fc1", p["fc1"])
+    _dense(sd, f"{prefix}.fc2", p["fc2"])
+
+
+def _residual_block(sd, prefix, p):
+    _conv(sd, f"{prefix}.conv1", p["conv1"])
+    _conv(sd, f"{prefix}.conv2", p["conv2"])
+    if "downsample" in p:
+        _conv(sd, f"{prefix}.downsample.0", p["downsample"])
+
+
+def _basic_encoder(sd, prefix, p):
+    for name in ("conv1", "conv2", "conv3"):
+        _conv(sd, f"{prefix}.{name}", p[name])
+    for k in range(1, 5):
+        for i in range(2):
+            _residual_block(sd, f"{prefix}.layer{k}.{i}", p[f"layer{k}_{i}"])
+
+
+def _shallow_encoder(sd, prefix, p):
+    _conv(sd, f"{prefix}.conv1", p["conv1"])
+    _conv(sd, f"{prefix}.conv2", p["conv2"])
+    _residual_block(sd, f"{prefix}.layer1", p["layer1"])
+    _residual_block(sd, f"{prefix}.layer2", p["layer2"])
+
+
+def _update_former(sd, prefix, p):
+    _dense(sd, f"{prefix}.input_transform", p["input_transform"])
+    _dense(sd, f"{prefix}.flow_head", p["flow_head"])
+    if "virtual_tracks" in p:
+        sd[f"{prefix}.virual_tracks"] = _t(p["virtual_tracks"])
+    i = 0
+    while f"time_blocks_{i}" in p:
+        blk = p[f"time_blocks_{i}"]
+        _mha(sd, f"{prefix}.time_blocks.{i}.attn", blk["attn"])
+        _mlp(sd, f"{prefix}.time_blocks.{i}.mlp", blk["mlp"])
+        i += 1
+    j = 0
+    while f"space_virtual_blocks_{j}" in p:
+        blk = p[f"space_virtual_blocks_{j}"]
+        _mha(sd, f"{prefix}.space_virtual_blocks.{j}.attn", blk["attn"])
+        _mlp(sd, f"{prefix}.space_virtual_blocks.{j}.mlp", blk["mlp"])
+        for name in ("space_point2virtual_blocks",
+                     "space_virtual2point_blocks"):
+            cb = p[f"{name}_{j}"]
+            pre = f"{prefix}.{name}.{j}"
+            _mha(sd, f"{pre}.cross_attn", cb["cross_attn"])
+            sd[f"{pre}.norm_context.weight"] = _t(cb["norm_context"]["scale"])
+            sd[f"{pre}.norm_context.bias"] = _t(cb["norm_context"]["bias"])
+            _mlp(sd, f"{pre}.mlp", cb["mlp"])
+        j += 1
+
+
+def _base_predictor(sd, prefix, p):
+    _update_former(sd, f"{prefix}.updateformer", p["updateformer"])
+    sd[f"{prefix}.norm.weight"] = _t(p["norm_scale"])
+    sd[f"{prefix}.norm.bias"] = _t(p["norm_bias"])
+    _dense(sd, f"{prefix}.ffeat_updater.0", p["ffeat_updater"])
+    if "vis_predictor" in p:
+        _dense(sd, f"{prefix}.vis_predictor.0", p["vis_predictor"])
+
+
+def tracker_state_dict_from_jax(params_np) -> dict:
+    """JAX `TrackerPredictor` params (a numpy pytree, with or without the
+    outer ``{"params": ...}``) -> the port's TrackerPredictor state_dict."""
+    p = params_np.get("params", params_np)
+    sd: dict = {}
+    _basic_encoder(sd, "coarse_fnet", p["coarse_fnet"])
+    _shallow_encoder(sd, "fine_fnet", p["fine_fnet"])
+    _base_predictor(sd, "coarse_predictor", p["coarse_predictor"])
+    _base_predictor(sd, "fine_predictor", p["fine_predictor"])
+    return sd

@@ -1,0 +1,204 @@
+"""Shared NN building blocks (PyTorch). Counterpart of
+vggsfm_tpu/models/layers.py.
+
+Conventions kept from the reference (vggsfm/models/modules.py):
+  * AttnBlock/CrossAttnBlock use the *normalized* input as the residual
+    base (the reference applies norm1 in place before the residual add);
+  * attention norms have no affine parameters and eps 1e-6;
+    CrossAttnBlock's norm_context has an affine and eps 1e-5;
+  * the attention is torch-`nn.MultiheadAttention`-shaped (packed
+    ``in_proj_weight``/``in_proj_bias`` + ``out_proj``), so the module's
+    state_dict keys are the reference checkpoint's.
+
+Parameters are stored in float32; each module computes in its ``dtype``
+(weights cast at use), as the JAX modules' ``dtype`` field does.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from vggsfm_tpu_torch.ops.fused_mlp import (
+    block_kernel_takes,
+    fused_ln_mlp,
+    fused_transformer_block,
+)
+
+
+def _ln_noaffine(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm without affine, f32 statistics, output in x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+class TorchMultiheadAttention(nn.Module):
+    """Multi-head attention in torch.nn.MultiheadAttention's parameter
+    layout; inputs (B, L, C), batch first. Softmax in f32."""
+
+    def __init__(self, dim: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dim, self.num_heads, self.dtype = dim, num_heads, dtype
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+
+    def packed(self):
+        """(w_in, b_in, w_out, b_out) in the compute dtype."""
+        dt = self.dtype
+        return (self.in_proj_weight.to(dt), self.in_proj_bias.to(dt),
+                self.out_proj.weight.to(dt), self.out_proj.bias.to(dt))
+
+    def forward(self, q, k, v):
+        C, H = self.dim, self.num_heads
+        D = C // H
+        w, b, wo, bo = self.packed()
+        q, k, v = q.to(self.dtype), k.to(self.dtype), v.to(self.dtype)
+        if q is k and k is v:
+            xq, xk, xv = F.linear(q, w, b).chunk(3, dim=-1)
+        else:
+            # only the projections each input needs
+            xq = F.linear(q, w[:C], b[:C])
+            xk = F.linear(k, w[C:2 * C], b[C:2 * C])
+            xv = F.linear(v, w[2 * C:], b[2 * C:])
+        B, Lq, _ = xq.shape
+        xq = xq.reshape(B, Lq, H, D)
+        xk = xk.reshape(B, xk.shape[1], H, D)
+        xv = xv.reshape(B, xv.shape[1], H, D)
+        attn = torch.einsum("bqhd,bkhd->bhqk", xq, xk).float()
+        attn = torch.softmax(attn / D ** 0.5, dim=-1).to(xv.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, xv).reshape(B, Lq, C)
+        return F.linear(out, wo, bo)
+
+    def ln_self_attention(self, x):
+        """The pre-LN attention half LN(x) + attn(LN(x)), plain."""
+        xn = _ln_noaffine(x.to(self.dtype))
+        return xn + self(xn, xn, xn)
+
+
+class Mlp(nn.Module):
+    """Linear -> GELU (erf) -> Linear, timm-style."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, out_features)
+
+    def packed(self):
+        dt = self.dtype
+        return (self.fc1.weight.to(dt), self.fc1.bias.to(dt),
+                self.fc2.weight.to(dt), self.fc2.bias.to(dt))
+
+    def forward(self, x, ln_residual: bool = False):
+        """Plain MLP — or, with ``ln_residual``, the transformer tail
+        ``x + fc2(gelu(fc1(LN(x))))`` through the fused_ln_mlp kernel."""
+        w1, b1, w2, b2 = self.packed()
+        x = x.to(self.dtype)
+        if not ln_residual:
+            return F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
+        lead, C = x.shape[:-1], x.shape[-1]
+        out = fused_ln_mlp(x.reshape(-1, C).contiguous(), w1, b1, w2, b2)
+        return out.reshape(*lead, w2.shape[0])
+
+
+class AttnBlock(nn.Module):
+    """Pre-LN self-attention + MLP on (B, L, C)."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.attn = TorchMultiheadAttention(hidden_size, num_heads, dtype)
+        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio),
+                       hidden_size, dtype)
+
+    def forward(self, x):
+        B, L, C = x.shape
+        x = x.to(self.dtype)
+        if block_kernel_takes(C, L, self.attn.num_heads):
+            # the whole block as one fused_transformer_block kernel
+            out = fused_transformer_block(
+                x.reshape(B * L, C).contiguous(), *self.attn.packed(),
+                *self.mlp.packed(), L, self.attn.num_heads)
+            return out.reshape(B, L, C)
+        # groups longer than the kernel takes: plain attention half, then
+        # the fused_ln_mlp kernel for the MLP half
+        return self.mlp(self.attn.ln_self_attention(x), ln_residual=True)
+
+
+class CrossAttnBlock(nn.Module):
+    """x attends to context; the MLP tail runs fused_ln_mlp."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.norm_context = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.cross_attn = TorchMultiheadAttention(hidden_size, num_heads,
+                                                  dtype)
+        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio),
+                       hidden_size, dtype)
+
+    def forward(self, x, context):
+        x = _ln_noaffine(x.to(self.dtype))
+        context = F.layer_norm(context.float(), (context.shape[-1],),
+                               self.norm_context.weight,
+                               self.norm_context.bias,
+                               1e-5).to(self.dtype)
+        x = x + self.cross_attn(x, context, context)
+        return self.mlp(x, ln_residual=True)
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5,
+                  spatial_dims=(-3, -2)) -> torch.Tensor:
+    """Parameterless InstanceNorm with f32 statistics; NHWC by default
+    (``spatial_dims=(-2, -1)`` for NCHW)."""
+    x32 = x.float()
+    mean = x32.mean(spatial_dims, keepdim=True)
+    var = (x32 - mean).square().mean(spatial_dims, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def _in_nchw(x):
+    return instance_norm(x, spatial_dims=(-2, -1))
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 convs with residual + strided 1x1 downsample; NCHW inside
+    the encoders (the reference's norm_fn='instance', parameterless)."""
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, padding=1)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1)
+        self.downsample = (nn.Sequential(nn.Conv2d(in_planes, planes, 1,
+                                                   stride))
+                           if stride != 1 else None)
+
+    def forward(self, x):
+        y = F.relu(_in_nchw(conv(self.conv1, x, self.dtype)))
+        y = F.relu(_in_nchw(conv(self.conv2, y, self.dtype)))
+        if self.downsample is not None:
+            x = _in_nchw(conv(self.downsample[0], x, self.dtype))
+        return F.relu(x + y)
+
+
+def conv(layer: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    """`layer` applied in `dtype` (weights cast at use)."""
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype),
+                    layer.bias.to(dtype), layer.stride, layer.padding)
+
+
+def group_norm_1(x, scale, bias, eps: float = 1e-5):
+    """GroupNorm(num_groups=1) over the last (channel) axis, affine."""
+    mean = x.mean(-1, keepdim=True)
+    var = (x - mean).square().mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias

@@ -1,0 +1,194 @@
+"""Fused former ops: a whole pre-LN transformer block, and the
+LN -> MLP -> residual tail.
+
+Counterparts of vggsfm_tpu/ops/fused_mlp.py (`fused_transformer_block`,
+`fused_ln_mlp`). Weights are in torch ``nn.Linear`` / ``nn.MultiheadAttention``
+layout, (out, in). Each op has
+
+  * a hand-written CUDA kernel (csrc/fused_former.cu, built at first use
+    by ops/_build.py), which the wrapper launches for CUDA tensors — or
+    raises, if the kernel does not take the inputs;
+  * a plain PyTorch version (``*_ref``) of the same function with the same
+    rounding points, which the wrapper takes only for CPU tensors;
+  * a launch counter (`launch_counts`), bumped once per kernel launch.
+
+Numerics (as the TPU kernels): LN without affine, eps 1e-6, statistics in
+f32; every matrix product accumulates in f32; the normalized input, q/k/v,
+the softmax probabilities, each head's output and the GELU output are
+rounded to the working dtype; softmax and the block's x1 stay f32; the
+attention residual base is the NORMALIZED input.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from vggsfm_tpu_torch.ops import _build
+
+# mirrors the kernel's limits (csrc/fused_former.cuh check_*_shape)
+MAX_C = 384
+MAX_L = 64
+MAX_HEAD_DIM = 64
+
+launch_counts = {"fused_transformer_block": 0, "fused_ln_mlp": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def block_kernel_takes(C: int, seq_len: int, num_heads: int) -> bool:
+    """Whether the whole-block kernel takes rows of width C in groups of
+    `seq_len`; beyond it AttnBlock runs plain attention + fused_ln_mlp."""
+    return (mlp_kernel_takes(C) and 1 <= seq_len <= MAX_L
+            and C % num_heads == 0 and C // num_heads <= MAX_HEAD_DIM)
+
+
+def mlp_kernel_takes(C: int) -> bool:
+    return 16 <= C <= MAX_C and C % 16 == 0
+
+
+# --------------------------------------------------------------- plain
+
+def _ln32(x32: torch.Tensor) -> torch.Tensor:
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    return (x32 - mean) * torch.rsqrt(var + 1e-6)
+
+
+def _rt(t: torch.Tensor, dt) -> torch.Tensor:
+    """Round an f32 tensor through dtype `dt`, back to f32."""
+    return t.to(dt).float()
+
+
+def _mlp_tail32(base32, w1, b1, w2, b2, dt):
+    """base + fc2(gelu(fc1(LN(base)))) in f32, rounding where the kernel
+    does. Products of dt values are exact in f32, so f32 matmuls of the
+    widened operands are f32-accumulated dt products."""
+    xn = _rt(_ln32(base32), dt)
+    h = xn @ w1.float().t() + b1.float()
+    h = _rt(F.gelu(h), dt)
+    return base32 + (h @ w2.float().t() + b2.float())
+
+
+def fused_ln_mlp_ref(x, w1, b1, w2, b2):
+    """Plain version of `fused_ln_mlp`: x (R, C); w1 (M, C), b1 (M,),
+    w2 (C, M), b2 (C,)."""
+    return _mlp_tail32(x.float(), w1, b1, w2, b2, x.dtype).to(x.dtype)
+
+
+def fused_transformer_block_ref(x, w_in, b_in, w_out, b_out, w1, b1, w2,
+                                b2, seq_len: int, num_heads: int):
+    """Plain version of `fused_transformer_block`: x (R, C) with each
+    group of `seq_len` consecutive rows one attention group."""
+    dt = x.dtype
+    R, C = x.shape
+    L, H = seq_len, num_heads
+    D = C // H
+    xn32 = _ln32(x.float())
+    qkv = _rt(_rt(xn32, dt) @ w_in.float().t() + b_in.float(), dt)
+    q, k, v = qkv.view(R // L, L, 3, H, D).unbind(2)
+    s = torch.einsum("blhd,bmhd->bhlm", q, k) * (1.0 / D ** 0.5)
+    p = _rt(torch.softmax(s, -1), dt)
+    o = _rt(torch.einsum("bhlm,bmhd->blhd", p, v), dt).reshape(R, C)
+    x1 = xn32 + (o @ w_out.float().t() + b_out.float())
+    return _mlp_tail32(x1, w1, b1, w2, b2, dt).to(dt)
+
+
+# --------------------------------------------------------------- wrappers
+
+def _check(x, params, shapes):
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fused former kernels take float32 or bfloat16, "
+                        f"got {x.dtype}")
+    for name, t in params.items():
+        if t.device != x.device or t.dtype != x.dtype:
+            raise TypeError(f"{name}: {t.dtype} on {t.device}, expected "
+                            f"{x.dtype} on {x.device}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{shapes[name]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _stream() -> int:
+    return int(torch.cuda.current_stream().cuda_stream)
+
+
+def fused_ln_mlp(x, w1, b1, w2, b2):
+    """x + fc2(gelu(fc1(LN(x)))), LN eps 1e-6 without affine.
+
+    x (R, C) float32 or bfloat16; w1 (M, C), b1 (M,), w2 (C, M), b2 (C,)
+    of the same dtype. CPU tensors take `fused_ln_mlp_ref`; CUDA tensors
+    launch the kernel or raise. Returns (R, C) in x's dtype.
+    """
+    if x.device.type == "cpu":
+        return fused_ln_mlp_ref(x, w1, b1, w2, b2)
+    R, C = x.shape
+    M = w1.shape[0]
+    _check(x, {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2},
+           {"x": (R, C), "w1": (M, C), "b1": (M,), "w2": (C, M),
+            "b2": (C,)})
+    if not mlp_kernel_takes(C):
+        raise ValueError(f"fused_ln_mlp kernel takes 16 <= C <= {MAX_C}, "
+                         f"C % 16 == 0; got C={C}")
+    out = torch.empty_like(x)
+    if R == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.vf_fused_ln_mlp(
+            _DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), R, C, M,
+            _stream())
+    if rc != 0:
+        raise RuntimeError(f"fused_ln_mlp kernel launch failed: code {rc}")
+    launch_counts["fused_ln_mlp"] += 1
+    return out
+
+
+def fused_transformer_block(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2,
+                            seq_len: int, num_heads: int):
+    """One whole pre-LN transformer block on x (R, C), attention within
+    each group of `seq_len` consecutive rows.
+
+    w_in (3C, C), b_in (3C,) packed q|k|v; w_out (C, C), b_out (C,);
+    w1 (M, C), b1 (M,), w2 (C, M), b2 (C,). CPU tensors take
+    `fused_transformer_block_ref`; CUDA tensors launch the kernel or raise.
+    """
+    if x.device.type == "cpu":
+        return fused_transformer_block_ref(x, w_in, b_in, w_out, b_out, w1,
+                                           b1, w2, b2, seq_len, num_heads)
+    R, C = x.shape
+    M = w1.shape[0]
+    _check(x, {"x": x, "w_in": w_in, "b_in": b_in, "w_out": w_out,
+               "b_out": b_out, "w1": w1, "b1": b1, "w2": w2, "b2": b2},
+           {"x": (R, C), "w_in": (3 * C, C), "b_in": (3 * C,),
+            "w_out": (C, C), "b_out": (C,), "w1": (M, C), "b1": (M,),
+            "w2": (C, M), "b2": (C,)})
+    if not block_kernel_takes(C, seq_len, num_heads) or R % seq_len:
+        raise ValueError(
+            f"fused_transformer_block kernel takes 16 <= C <= {MAX_C} "
+            f"(C % 16 == 0), 1 <= L <= {MAX_L}, head dim <= {MAX_HEAD_DIM} "
+            f"and R % L == 0; got R={R}, C={C}, L={seq_len}, "
+            f"H={num_heads}")
+    out = torch.empty_like(x)
+    if R == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.vf_fused_block(
+            _DTYPES[x.dtype], x.data_ptr(), w_in.data_ptr(),
+            b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), R, C, M, seq_len, num_heads, _stream())
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_transformer_block kernel launch failed: code {rc}")
+    launch_counts["fused_transformer_block"] += 1
+    return out
