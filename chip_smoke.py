@@ -29,7 +29,6 @@ checkout around this file; imports nothing of JAX.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -38,6 +37,8 @@ import time
 import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# where the run's full report and profiler table go (listed in .gitignore)
+OUT_DIR = os.path.join(HERE, "smoke_out")
 
 # published dense peaks of an H100 SXM at its 700 W limit (NVIDIA data
 # sheet): memory rate, bf16 tensor-core rate, f32 CUDA-core rate
@@ -284,7 +285,7 @@ def slice_phase(report: dict, launches: dict) -> None:
 def profile_slice(drive) -> dict:
     """One more run of the slice under torch.profiler: device time by
     kernel and the device's busy share of the run's wall time. The table
-    goes to chiprun_out/slice_profile.txt. Informational: the run above is
+    goes to smoke_out/slice_profile.txt. Informational: the run above is
     the one checked and timed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -312,9 +313,8 @@ def _report_profile(events, wall) -> dict:
                       if str(ev.device_type).endswith("CUDA")
                       and dev_us(ev) > 0), key=dev_us, reverse=True)
     busy_s = sum(dev_us(ev) for ev in kernels) / 1e6
-    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out", "slice_profile.txt"),
-              "w") as f:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "slice_profile.txt"), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
     # (the sort key's older name; newer PyTorch reads it as device time)
     top = [(ev.key[:60], dev_us(ev) / 1e3, ev.count) for ev in kernels[:8]]
@@ -361,12 +361,6 @@ def agree_phase(report: dict) -> None:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,slice,agree",
-                    help="comma-separated subset of kernels,slice,agree")
-    args = ap.parse_args()
-    phases = args.phases.split(",")
-
     try:
         import torch
     except ImportError:
@@ -415,8 +409,6 @@ def main() -> int:
     for phase, fn in (("kernels", lambda: kernel_phase(report)),
                       ("slice", lambda: slice_phase(extra, launches)),
                       ("agree", lambda: agree_phase(extra))):
-        if phase not in phases:
-            continue
         t0 = time.perf_counter()
         try:
             fn()
@@ -432,14 +424,12 @@ def main() -> int:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             entry.setdefault(key, None)
-    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
-              "w") as f:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": list(report.values()),
                    **extra, "failed": failed}, f, indent=1)
-    if failed or set(phases) != {"kernels", "slice", "agree"}:
-        print(f"chip_smoke: failed phases {failed}" if failed
-              else f"chip_smoke: ran only {phases}", flush=True)
+    if failed:
+        print(f"chip_smoke: failed phases {failed}", flush=True)
         return 1
     print(json.dumps({"kernels": list(report.values())}))
     print(card)

@@ -1,9 +1,10 @@
 """The fused former kernels on a CUDA GPU against their plain versions.
 
 Marked `cuda`: skipped without a GPU. Imports nothing of JAX, so it runs
-on a machine with only the port's dependencies:
+on a machine with only the port's dependencies (tests/conftest.py imports
+JAX, hence --noconftest):
 
-    python -m pytest tests/test_torch_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances as chip_smoke.py states them: f32 1e-4 absolute (sums in
 another order), bf16 2 ulp of the O(1-5) outputs (0.0625).

@@ -103,9 +103,12 @@ def _emu_block(lib, x, params, L, H):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,tracks,C,H", [(8, 17, 64, 4), (9, 7, 48, 3),
-                                          (64, 2, 64, 2), (1, 70, 32, 2)])
+                                          (64, 2, 64, 2), (1, 70, 32, 2),
+                                          (8, 5, 48, 6)])
 def test_emulated_block_kernel_matches_plain(rng, emu, dtype, L, tracks, C,
                                              H):
+    """bf16 with 16-divisible head width and hidden size takes the
+    tensor-core (wmma) instantiation, head width 8 the CUDA-core one."""
     x = torch.from_numpy(_mk(rng, tracks * L, C) * 20).to(dtype)
     params = [p.to(dtype) for p in _torch_layout(_block_params(rng, C,
                                                                4 * C))]
@@ -119,6 +122,8 @@ def test_emulated_block_kernel_matches_plain(rng, emu, dtype, L, tracks, C,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R,C,M", [(130, 64, 256), (5, 48, 100)])
 def test_emulated_ln_mlp_kernel_matches_plain(rng, emu, dtype, R, C, M):
+    """M = 100 (not a multiple of 16) takes the CUDA-core instantiation in
+    bf16, M = 256 the tensor-core one."""
     x = torch.from_numpy(_mk(rng, R, C) * 20).to(dtype)
     w1, b1, w2, b2 = [torch.from_numpy(a).to(dtype) for a in (
         _mk(rng, M, C), _mk(rng, M), _mk(rng, C, M), _mk(rng, C))]
@@ -147,5 +152,5 @@ def test_shared_memory_fits_a_hopper_block(emu):
     # 227 KB dynamic shared memory per block on sm_90
     for tsize in (2, 4):
         for C, H in ((384, 8), (256, 8)):
-            assert emu.vf_block_smem_bytes(C, H, 64, tsize) <= 232448
-            assert emu.vf_ln_mlp_smem_bytes(C, tsize) <= 232448
+            assert emu.vf_block_smem_bytes(C, H, 64, 4 * C, tsize) <= 232448
+            assert emu.vf_ln_mlp_smem_bytes(C, 4 * C, tsize) <= 232448

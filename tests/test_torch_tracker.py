@@ -29,7 +29,7 @@ from vggsfm_tpu_torch.models.refine import refine_track as t_refine
 
 
 def _t(a):
-    return torch.from_numpy(np.asarray(a))
+    return torch.from_numpy(np.array(a))
 
 
 def _close(out, ref, atol):

@@ -82,3 +82,30 @@ def test_seeded_init_conventions():
     assert torch.count_nonzero(blk.attn.in_proj_bias) == 0
     # LeCun normal: std ~ 1/sqrt(fan_in)
     assert abs(blk.mlp.fc1.weight.std().item() * 384 ** 0.5 - 1.0) < 0.05
+
+
+def test_runner_with_loaded_weights_leaves_weights_free_mode(jax_params):
+    """Given weights, the runner keeps the matching init but drops the
+    weights-free extras (cycle visibility, NCC polish), as the JAX runner
+    does with a checkpoint: visibility then comes from the vis head."""
+    from vggsfm_tpu_torch.runner import RunnerConfig, VGGSfMRunner
+
+    sd = tracker_state_dict_from_jax(jax_params)
+    cfg = RunnerConfig(precision="f32", coarse_iters=1, fine_tracking=False)
+    loaded = VGGSfMRunner(cfg, device="cpu", state_dict=sd)
+    fresh = VGGSfMRunner(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    images = rng.uniform(size=(1, 2, 64, 64, 3)).astype(np.float32)
+    qp = rng.uniform(8, 56, size=(64, 2)).astype(np.float32)
+    _, vis_l, _ = loaded.predict_tracks(images, loaded.fmaps(images), [0],
+                                        [qp])
+    _, vis_f, _ = fresh.predict_tracks(images, fresh.fmaps(images), [0],
+                                       [qp])
+    model = TrackerPredictor().eval()
+    model.load_state_dict(sd)
+    with torch.no_grad():
+        _, vis_head = model(torch.from_numpy(images),
+                            torch.from_numpy(qp)[None], coarse_iters=1,
+                            matching_init=True, matching_vis=False)
+    torch.testing.assert_close(vis_l, vis_head, atol=1e-5, rtol=0)
+    assert not torch.allclose(vis_f, vis_head)

@@ -6,25 +6,29 @@
 // Each entry point takes the working dtype (0 = float32, 1 = bfloat16),
 // device pointers, the shapes and a cudaStream_t. It launches on that
 // stream, allocates nothing, does not synchronise, and returns 0 on
-// success, a negative code for shapes the kernel does not take (see
-// check_*_shape), or the cudaError_t of the launch.
+// success, a negative code for inputs the kernel does not take (see
+// check_*_shape; -7: a weight not 32-byte aligned for the tensor cores),
+// or the cudaError_t of the launch. bf16 inputs whose dimensions the 16-wide
+// tensor-core tiles divide take the tensor-core instantiation (use_tc).
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "fused_former.cuh"
 
 namespace vf {
 
-template <typename T>
+template <typename T, bool TC>
 __global__ void __launch_bounds__(kThreads, 1)
     ln_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                   const T* __restrict__ b1, const T* __restrict__ w2,
                   const T* __restrict__ b2, T* __restrict__ out, int R, int C,
                   int M) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  ln_mlp_body<T>(x, w1, b1, w2, b2, out, R, C, M, smem);
+  extern __shared__ __align__(128) unsigned char smem[];
+  ln_mlp_body<T, TC>(x, w1, b1, w2, b2, out, R, C, M, smem);
 }
 
-template <typename T>
+template <typename T, bool TC>
 __global__ void __launch_bounds__(kThreads, 1)
     block_kernel(const T* __restrict__ x, const T* __restrict__ w_in,
                  const T* __restrict__ b_in, const T* __restrict__ w_out,
@@ -32,41 +36,49 @@ __global__ void __launch_bounds__(kThreads, 1)
                  const T* __restrict__ b1, const T* __restrict__ w2,
                  const T* __restrict__ b2, T* __restrict__ out, int R, int C,
                  int M, int L, int H) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  block_body<T>(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R, C, M, L,
-                H, smem);
+  extern __shared__ __align__(128) unsigned char smem[];
+  block_body<T, TC>(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R, C,
+                    M, L, H, smem);
 }
 
-template <typename T>
+inline bool aligned32(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 32 == 0;
+}
+
+template <typename T, bool TC>
 int launch_ln_mlp(const void* x, const void* w1, const void* b1,
                   const void* w2, const void* b2, void* out, int R, int C,
                   int M, cudaStream_t stream) {
-  const size_t smem = ln_mlp_smem_bytes(C, sizeof(T));
+  if (TC && !(aligned32(w1) && aligned32(w2))) return -7;
+  const size_t smem = ln_mlp_smem_bytes(C, M, sizeof(T));
   cudaError_t e = cudaFuncSetAttribute(
-      ln_mlp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ln_mlp_kernel<T, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (e != cudaSuccess) return int(e);
   const int grid = (R + kBM - 1) / kBM;
-  ln_mlp_kernel<T><<<grid, kThreads, smem, stream>>>(
+  ln_mlp_kernel<T, TC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(w2),
       static_cast<const T*>(b2), static_cast<T*>(out), R, C, M);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool TC>
 int launch_block(const void* x, const void* w_in, const void* b_in,
                  const void* w_out, const void* b_out, const void* w1,
                  const void* b1, const void* w2, const void* b2, void* out,
                  int R, int C, int M, int L, int H, cudaStream_t stream) {
-  const size_t smem = block_smem_bytes(C, H, L, sizeof(T));
+  if (TC && !(aligned32(w_in) && aligned32(w_out) && aligned32(w1)
+              && aligned32(w2)))
+    return -7;
+  const size_t smem = block_smem_bytes(C, H, L, M, sizeof(T));
   cudaError_t e = cudaFuncSetAttribute(
-      block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      block_kernel<T, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (e != cudaSuccess) return int(e);
   const int br = block_rows(L);
   const int grid = (R + br - 1) / br;
-  block_kernel<T><<<grid, kThreads, smem, stream>>>(
+  block_kernel<T, TC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w_in),
       static_cast<const T*>(b_in), static_cast<const T*>(w_out),
       static_cast<const T*>(b_out), static_cast<const T*>(w1),
@@ -86,11 +98,14 @@ int vf_fused_ln_mlp(int dtype, const void* x, const void* w1, const void* b1,
   if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return vf::launch_ln_mlp<float>(x, w1, b1, w2, b2, out, R, C, M, st);
-  if (dtype == 1)
-    return vf::launch_ln_mlp<__nv_bfloat16>(x, w1, b1, w2, b2, out, R, C, M,
-                                            st);
-  return -100;
+    return vf::launch_ln_mlp<float, false>(x, w1, b1, w2, b2, out, R, C, M,
+                                           st);
+  if (dtype != 1) return -100;
+  if (vf::use_tc(2, C, 16, M))
+    return vf::launch_ln_mlp<__nv_bfloat16, true>(x, w1, b1, w2, b2, out, R,
+                                                  C, M, st);
+  return vf::launch_ln_mlp<__nv_bfloat16, false>(x, w1, b1, w2, b2, out, R,
+                                                 C, M, st);
 }
 
 int vf_fused_block(int dtype, const void* x, const void* w_in,
@@ -102,21 +117,23 @@ int vf_fused_block(int dtype, const void* x, const void* w_in,
   if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return vf::launch_block<float>(x, w_in, b_in, w_out, b_out, w1, b1, w2,
-                                   b2, out, R, C, M, L, H, st);
-  if (dtype == 1)
-    return vf::launch_block<__nv_bfloat16>(x, w_in, b_in, w_out, b_out, w1,
-                                           b1, w2, b2, out, R, C, M, L, H, st);
-  return -100;
+    return vf::launch_block<float, false>(x, w_in, b_in, w_out, b_out, w1, b1,
+                                          w2, b2, out, R, C, M, L, H, st);
+  if (dtype != 1) return -100;
+  if (vf::use_tc(2, C, C / H, M))
+    return vf::launch_block<__nv_bfloat16, true>(
+        x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R, C, M, L, H, st);
+  return vf::launch_block<__nv_bfloat16, false>(
+      x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R, C, M, L, H, st);
 }
 
 // Shared memory one block of each kernel takes, for reports and tests.
-size_t vf_block_smem_bytes(int C, int H, int L, int tsize) {
-  return vf::block_smem_bytes(C, H, L, tsize);
+size_t vf_block_smem_bytes(int C, int H, int L, int M, int tsize) {
+  return vf::block_smem_bytes(C, H, L, M, tsize);
 }
 
-size_t vf_ln_mlp_smem_bytes(int C, int tsize) {
-  return vf::ln_mlp_smem_bytes(C, tsize);
+size_t vf_ln_mlp_smem_bytes(int C, int M, int tsize) {
+  return vf::ln_mlp_smem_bytes(C, M, tsize);
 }
 
 }  // extern "C"

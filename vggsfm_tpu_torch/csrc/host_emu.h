@@ -1,8 +1,10 @@
 // Host emulation of the small CUDA subset fused_former.cuh uses, so its
 // device code compiles with a plain C++20 compiler and runs on the CPU for
 // testing: one std::thread per CUDA thread, a std::barrier per block for
-// __syncthreads, blocks one after another, and bit-exact bfloat16
-// conversions (round to nearest even). Not used by the CUDA build.
+// __syncthreads, blocks one after another, bit-exact bfloat16 conversions
+// (round to nearest even), and the 16x16x16 nvcuda::wmma calls with every
+// lane holding the whole tile (f32 products and sums, k in order; lane 0
+// of each warp stores). Not used by the CUDA build.
 #pragma once
 
 #include <math.h>
@@ -13,6 +15,7 @@
 #include <cstdint>
 #include <cstring>
 #include <thread>
+#include <type_traits>
 #include <vector>
 
 struct dim3 {
@@ -47,6 +50,71 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
 }
 
 inline float rsqrtf(float v) { return 1.0f / sqrtf(v); }
+
+inline float emu_to_f(float v) { return v; }
+inline float emu_to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+namespace nvcuda {
+namespace wmma {
+
+struct matrix_a {};
+struct matrix_b {};
+struct accumulator {};
+struct row_major {};
+struct col_major {};
+enum layout_t { mem_row_major, mem_col_major };
+
+template <typename Use, int m, int n, int k, typename T,
+          typename Layout = void>
+struct fragment {
+  float v[16][16];
+};
+
+template <typename Use, typename T, typename Layout>
+void load_matrix_sync(fragment<Use, 16, 16, 16, T, Layout>& f, const T* p,
+                      unsigned ldm) {
+  const bool rm = std::is_same<Layout, row_major>::value;
+  for (int r = 0; r < 16; ++r)
+    for (int c = 0; c < 16; ++c)
+      f.v[r][c] = emu_to_f(rm ? p[r * ldm + c] : p[c * ldm + r]);
+}
+
+inline void fill_fragment(fragment<accumulator, 16, 16, 16, float>& f,
+                          float x) {
+  for (auto& row : f.v)
+    for (auto& e : row) e = x;
+}
+
+template <typename T, typename LA, typename LB>
+void mma_sync(fragment<accumulator, 16, 16, 16, float>& d,
+              const fragment<matrix_a, 16, 16, 16, T, LA>& a,
+              const fragment<matrix_b, 16, 16, 16, T, LB>& b,
+              const fragment<accumulator, 16, 16, 16, float>& c) {
+  float out[16][16];
+  for (int r = 0; r < 16; ++r)
+    for (int n = 0; n < 16; ++n) {
+      float s = c.v[r][n];
+      for (int k = 0; k < 16; ++k) s = fmaf(a.v[r][k], b.v[k][n], s);
+      out[r][n] = s;
+    }
+  std::memcpy(d.v, out, sizeof(out));
+}
+
+inline void store_matrix_sync(float* p,
+                              const fragment<accumulator, 16, 16, 16, float>& f,
+                              unsigned ldm, layout_t layout) {
+  if (threadIdx.x % 32 != 0) return;
+  for (int r = 0; r < 16; ++r)
+    for (int c = 0; c < 16; ++c) {
+      if (layout == mem_row_major)
+        p[r * ldm + c] = f.v[r][c];
+      else
+        p[c * ldm + r] = f.v[r][c];
+    }
+}
+
+}  // namespace wmma
+}  // namespace nvcuda
 
 inline std::barrier<>* emu_barrier = nullptr;
 

@@ -73,21 +73,15 @@ def _interp_matrix(src_size: int, dst_size: int, align_corners: bool,
 
 def interpolate_bilinear(x: torch.Tensor, out_hw,
                          align_corners: bool = True) -> torch.Tensor:
-    """Resize (B, H, W, C) -> (B, h, w, C), bilinear, as two separable
-    interpolation-matrix products."""
-    B, H, W, C = x.shape
-    h, w = out_hw
-    if (h, w) == (H, W):
-        return x
-    My = _interp_matrix(H, h, align_corners, x.dtype, x.device)
-    Mx = _interp_matrix(W, w, align_corners, x.dtype, x.device)
-    out = torch.einsum("oh,bhwc->bowc", My, x)
-    return torch.einsum("pw,bowc->bopc", Mx, out)
+    """Resize (B, H, W, C) -> (B, h, w, C), bilinear."""
+    return interpolate_bilinear_nchw(x.permute(0, 3, 1, 2), out_hw,
+                                     align_corners).permute(0, 2, 3, 1)
 
 
 def interpolate_bilinear_nchw(x: torch.Tensor, out_hw,
                               align_corners: bool = True) -> torch.Tensor:
-    """`interpolate_bilinear` on (B, C, H, W)."""
+    """Resize (B, C, H, W) -> (B, C, h, w), bilinear, as two separable
+    interpolation-matrix products."""
     H, W = x.shape[-2:]
     h, w = out_hw
     if (h, w) == (H, W):

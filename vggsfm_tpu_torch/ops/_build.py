@@ -75,7 +75,7 @@ def _digest(files, cmd_tail) -> str:
 def _build(kind: str, files, make_cmd) -> str:
     """Compile into a content-named library unless it exists; returns its
     path. Writes to a temporary name first and renames, so concurrent
-    builders never load a half-written file."""
+    builds never load a half-written file."""
     tail = make_cmd("OUT")[1:]
     path = os.path.join(BUILD_DIR, f"lib{kind}_{_digest(files, tail)}.so")
     if os.path.exists(path):
@@ -107,9 +107,9 @@ def _declare(lib, with_stream: bool):
     lib.vf_fused_ln_mlp.restype = ci
     lib.vf_fused_block.argtypes = [ci] + [vp] * 10 + [ci] * 5 + tail
     lib.vf_fused_block.restype = ci
-    lib.vf_block_smem_bytes.argtypes = [ci] * 4
+    lib.vf_block_smem_bytes.argtypes = [ci] * 5
     lib.vf_block_smem_bytes.restype = ctypes.c_size_t
-    lib.vf_ln_mlp_smem_bytes.argtypes = [ci] * 2
+    lib.vf_ln_mlp_smem_bytes.argtypes = [ci] * 3
     lib.vf_ln_mlp_smem_bytes.restype = ctypes.c_size_t
     return lib
 

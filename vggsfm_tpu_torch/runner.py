@@ -35,8 +35,6 @@ def resolve_device(device="cuda") -> torch.device:
 class RunnerConfig:
     """The tracking fields of vggsfm_tpu.runner.RunnerConfig."""
 
-    img_size: int = 1024
-    max_query_pts: int = 4096
     fine_tracking: bool = True
     coarse_iters: int = 6
     max_points_num: int = 163840  # track-frames per coarse tracker call
@@ -83,11 +81,6 @@ class VGGSfMRunner:
                                else x).to(self.device, torch.float32)
 
     @torch.inference_mode()
-    def _fmaps(self, images):
-        with self._stage("fmaps"):
-            return self.tracker.process_images_to_fmaps(images)
-
-    @torch.inference_mode()
     def _coarse_track(self, fmaps, qp):
         minit = self.cfg.matching_init
         mvis = minit and not self._weights_loaded
@@ -121,9 +114,12 @@ class VGGSfMRunner:
                                 subpixel_refine=subpix,
                                 patch_dtype=tr.dtype)
 
+    @torch.inference_mode()
     def fmaps(self, images):
         """Coarse feature maps of (B, S, H, W, 3) images in [0, 1]."""
-        return self._fmaps(self._to_device(images))
+        images = self._to_device(images)
+        with self._stage("fmaps"):
+            return self.tracker.process_images_to_fmaps(images)
 
     @torch.inference_mode()
     def predict_tracks(self, images, fmaps, query_indices, query_points,
