@@ -1,7 +1,7 @@
 """The port's fused former ops against the JAX package's Pallas kernels.
 
 * The plain PyTorch versions (`fused_transformer_block_ref`,
-  `fused_ln_mlp_ref`) against `vggsfm_tpu.ops.fused_mlp`'s kernels run in
+  `fused_ln_mlp_ref`; `fused_ln_attn_ref` in test_torch_camera.py) against `vggsfm_tpu.ops.fused_mlp`'s kernels run in
   interpret mode on the CPU, on the same numpy inputs (weights transposed
   to torch's (out, in) layout). f32 tolerance 5e-5 absolute: the two sides
   sum in different orders and the Pallas kernel's rational erf is within
@@ -74,8 +74,12 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     mlp = params[4:]
     assert torch.equal(tfm.fused_ln_mlp(x, *mlp),
                        tfm.fused_ln_mlp_ref(x, *mlp))
+    w_in, b_in, w_out, b_out = params[:4]
+    assert torch.equal(tfm.fused_ln_attn(x, w_in, b_in, w_out, b_out, L, 4),
+                       tfm.fused_ln_attn_ref(x, w_in, b_in, w_out, b_out, L,
+                                             4))
     assert tfm.launch_counts == {"fused_transformer_block": 0,
-                                 "fused_ln_mlp": 0}
+                                 "fused_ln_mlp": 0, "fused_ln_attn": 0}
 
 
 # ------------------------------------------------ the CUDA source on the CPU
@@ -120,10 +124,12 @@ def test_emulated_block_kernel_matches_plain(rng, emu, dtype, L, tracks, C,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R,C,M", [(130, 64, 256), (5, 48, 100)])
+@pytest.mark.parametrize("R,C,M", [(130, 64, 256), (5, 48, 100),
+                                   (40, 768, 64), (3, 400, 96)])
 def test_emulated_ln_mlp_kernel_matches_plain(rng, emu, dtype, R, C, M):
     """M = 100 (not a multiple of 16) takes the CUDA-core instantiation in
-    bf16, M = 256 the tensor-core one."""
+    bf16, M = 256 the tensor-core one; C = 768 and 400 the 32-row tile of
+    the rows wider than 384 (a narrow hidden width keeps it quick)."""
     x = torch.from_numpy(_mk(rng, R, C) * 20).to(dtype)
     w1, b1, w2, b2 = [torch.from_numpy(a).to(dtype) for a in (
         _mk(rng, M, C), _mk(rng, M), _mk(rng, C, M), _mk(rng, C))]
@@ -139,13 +145,59 @@ def test_emulated_ln_mlp_kernel_matches_plain(rng, emu, dtype, R, C, M):
 
 
 def test_emulated_kernel_rejects_shapes_it_does_not_take(emu):
-    x = torch.zeros(10, 400)
-    # C > 384, then R not a multiple of L, then L > 64
-    assert emu.vf_fused_ln_mlp(0, *[x.data_ptr()] * 6, 10, 400, 8) == -2
+    x = torch.zeros(10, 800)
+    # ln_mlp: C > 768; the block: C > 384, then R not a multiple of L,
+    # then L > 64
+    assert emu.vf_fused_ln_mlp(0, *[x.data_ptr()] * 6, 10, 784, 8) == -2
+    assert emu.vf_fused_block(0, *[x.data_ptr()] * 10, 10, 400, 8, 2,
+                              4) == -2
     assert emu.vf_fused_block(0, *[x.data_ptr()] * 10, 10, 64, 8, 3,
                               4) == -5
     assert emu.vf_fused_block(0, *[x.data_ptr()] * 10, 130, 64, 8, 65,
                               4) == -4
+    # ln_attn: heads wider than 128, then groups longer than 64 rows
+    assert emu.vf_fused_ln_attn(0, *[x.data_ptr()] * 8, 16, 512, 8,
+                                2) == -6
+    assert emu.vf_fused_ln_attn(0, *[x.data_ptr()] * 8, 130, 64, 65,
+                                4) == -4
+
+
+def _emu_attn(lib, x, params, L, H):
+    R, C = x.shape
+    scratch = [torch.empty(lib.vf_attn_scratch_rows(R, L), C, dtype=x.dtype)
+               for _ in range(2)]
+    out = torch.empty_like(x)
+    rc = lib.vf_fused_ln_attn(_DT[x.dtype], x.data_ptr(),
+                              *[p.data_ptr() for p in params],
+                              out.data_ptr(), *[t.data_ptr() for t in scratch],
+                              R, C, L, H)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,tracks,C,H,bm", [(8, 9, 192, 2, 16),
+                                             (40, 3, 64, 4, 64),
+                                             (9, 7, 48, 3, 16),
+                                             (20, 3, 32, 2, 32),
+                                             (33, 2, 32, 2, 64),
+                                             (1, 20, 96, 12, 16)])
+def test_emulated_ln_attn_kernel_matches_plain(rng, emu, dtype, L, tracks,
+                                               C, H, bm):
+    """The group length L picks a row tile of `bm` = 16, 32 or 64 rows
+    (the smallest holding a track), with ragged last blocks; head dim 96
+    (C = 192, 2 heads); head dim 8 takes the CUDA-core instantiation in
+    bf16, the others the tensor-core one."""
+    tiles = -(-(tracks * L) // ((bm // L) * L))
+    assert emu.vf_attn_scratch_rows(tracks * L, L) == tiles * bm
+    x = torch.from_numpy(_mk(rng, tracks * L, C) * 20).to(dtype)
+    params = [p.to(dtype) for p in _torch_layout(
+        _block_params(rng, C, 4 * C)[:4])]
+    out = _emu_attn(emu, x, params, L, H)
+    ref = tfm.fused_ln_attn_ref(x, *params, L, H)
+    tol = 2e-5 if dtype == torch.float32 else 0.03125
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
+                               atol=tol)
 
 
 def test_shared_memory_fits_a_hopper_block(emu):
@@ -154,3 +206,6 @@ def test_shared_memory_fits_a_hopper_block(emu):
         for C, H in ((384, 8), (256, 8)):
             assert emu.vf_block_smem_bytes(C, H, 64, 4 * C, tsize) <= 232448
             assert emu.vf_ln_mlp_smem_bytes(C, 4 * C, tsize) <= 232448
+        assert emu.vf_ln_mlp_smem_bytes(768, 3072, tsize) <= 232448
+        for H in (8, 6):  # head dims 96 and 128, the widest tile and L
+            assert emu.vf_attn_smem_bytes(768, H, 64, tsize) <= 232448

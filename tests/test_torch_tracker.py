@@ -256,3 +256,24 @@ def test_extract_patches_and_ncc(rng, scene):
     # of ~1e-7 in the NCC values moves the sub-pixel offset by ~1e-4 px
     _close(tout, jout, 1e-3)
     _close(tconf, jconf, 1e-4)
+
+
+def test_ncc_border_tracks_off_the_tiled_frame_shape(rng):
+    """At a frame shape outside the JAX package's tiled branch
+    (W % 128 != 0) each search tap is clamped to the frame, not the region
+    shifted inside it: tracks within 6 px of every border match JAX."""
+    H, W = 120, 100
+    tex = rng.uniform(size=(9, 9, 3)).astype(np.float32)
+    big = np.asarray(jax.image.resize(tex, (132, 112, 3), "cubic"))
+    scene = np.clip(np.stack([big[:H, :W], big[2:H + 2, 3:W + 3]])[None],
+                    0, 1)
+    truth = np.float32([[3.5, 60.2], [96.3, 40.7], [50.1, 2.4],
+                        [30.8, 116.6], [5.2, 4.1], [95.5, 117.3],
+                        [2.2, 100.9], [97.9, 1.6]])[None]
+    coords = np.stack([truth, truth - np.float32([3, 2])], axis=1)
+    coords = coords + rng.normal(size=coords.shape).astype(np.float32) * 0.7
+    coords[:, 0] = truth
+    jout, jconf = j_ncc(jnp.asarray(scene), jnp.asarray(coords))
+    tout, tconf = t_ncc(_t(scene), _t(coords))
+    _close(tout, jout, 1e-3)  # as test_extract_patches_and_ncc
+    _close(tconf, jconf, 1e-4)

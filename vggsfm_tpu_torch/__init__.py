@@ -1,1 +1,2 @@
-"""PyTorch/CUDA port of vggsfm_tpu (tracking slice)."""
+"""PyTorch/CUDA port of vggsfm_tpu (query ranking, camera init and
+tracking)."""

@@ -8,18 +8,68 @@
 
 namespace {
 
-template <typename T, bool TC>
-int run_ln_mlp(const void* x, const void* w1, const void* b1, const void* w2,
-               const void* b2, void* out, int R, int C, int M) {
+template <typename T, bool TC, class TL>
+int run_ln_mlp_tile(const void* x, const void* w1, const void* b1,
+                    const void* w2, const void* b2, void* out, int R, int C,
+                    int M) {
   const size_t smem = vf::ln_mlp_smem_bytes(C, M, sizeof(T));
-  const int grid = (R + vf::kBM - 1) / vf::kBM;
+  const int grid = (R + TL::BM - 1) / TL::BM;
   emu_launch(grid, vf::kThreads, smem, [&](unsigned char* s) {
-    vf::ln_mlp_body<T, TC>(
+    vf::ln_mlp_body<T, TC, TL>(
         static_cast<const T*>(x), static_cast<const T*>(w1),
         static_cast<const T*>(b1), static_cast<const T*>(w2),
         static_cast<const T*>(b2), static_cast<T*>(out), R, C, M, s);
   });
   return 0;
+}
+
+template <typename T, bool TC>
+int run_ln_mlp(const void* x, const void* w1, const void* b1, const void* w2,
+               const void* b2, void* out, int R, int C, int M) {
+  if (C <= vf::kMaxC)
+    return run_ln_mlp_tile<T, TC, vf::NarrowTile>(x, w1, b1, w2, b2, out, R,
+                                                  C, M);
+  return run_ln_mlp_tile<T, TC, vf::WideTile>(x, w1, b1, w2, b2, out, R, C,
+                                              M);
+}
+
+template <typename T, bool TC, int BM>
+int run_attn_tile(const void* x, const void* w_in, const void* b_in,
+                  const void* w_out, const void* b_out, void* out, void* xs,
+                  void* os, int R, int C, int L, int H) {
+  const size_t smem = vf::attn_smem_bytes(C, H, L, sizeof(T));
+  const int br = vf::block_rows(L, BM);
+  const int tiles = (R + br - 1) / br;
+  const T* xt = static_cast<const T*>(x);
+  emu_launch(tiles, vf::kThreads, smem, [&](unsigned char* s) {
+    vf::attn_ln_body<T, BM>(xt, static_cast<T*>(xs), R, C, L, H, s);
+  });
+  emu_launch(tiles, vf::kThreads, smem, [&](unsigned char* s) {
+    vf::attn_heads_body<T, TC, BM>(
+        static_cast<const T*>(w_in), static_cast<const T*>(b_in),
+        static_cast<const T*>(xs), static_cast<T*>(os), R, C, L, H, s);
+  }, H);
+  emu_launch(tiles, vf::kThreads, smem, [&](unsigned char* s) {
+    vf::attn_out_body<T, TC, BM>(
+        xt, static_cast<const T*>(w_out), static_cast<const T*>(b_out),
+        static_cast<T*>(out), static_cast<const T*>(os), R, C, L, H, s);
+  }, (C + vf::kAttnNC - 1) / vf::kAttnNC);
+  return 0;
+}
+
+template <typename T, bool TC>
+int run_attn(const void* x, const void* w_in, const void* b_in,
+             const void* w_out, const void* b_out, void* out, void* xs,
+             void* os, int R, int C, int L, int H) {
+  const int bm = vf::attn_tile_rows(L);
+  if (bm == 16)
+    return run_attn_tile<T, TC, 16>(x, w_in, b_in, w_out, b_out, out, xs, os,
+                                    R, C, L, H);
+  if (bm == 32)
+    return run_attn_tile<T, TC, 32>(x, w_in, b_in, w_out, b_out, out, xs, os,
+                                    R, C, L, H);
+  return run_attn_tile<T, TC, 64>(x, w_in, b_in, w_out, b_out, out, xs, os, R,
+                                  C, L, H);
 }
 
 template <typename T, bool TC>
@@ -76,12 +126,35 @@ int vf_fused_block(int dtype, const void* x, const void* w_in,
                                          w2, b2, out, R, C, M, L, H);
 }
 
+int vf_fused_ln_attn(int dtype, const void* x, const void* w_in,
+                     const void* b_in, const void* w_out, const void* b_out,
+                     void* out, void* xs, void* os, int R, int C, int L,
+                     int H) {
+  const int bad = vf::check_attn_shape(R, C, L, H);
+  if (bad) return bad;
+  if (dtype == 0)
+    return run_attn<float, false>(x, w_in, b_in, w_out, b_out, out, xs, os, R,
+                                  C, L, H);
+  if (dtype != 1) return -100;
+  if (vf::use_tc(2, C, C / H, 16))
+    return run_attn<__nv_bfloat16, true>(x, w_in, b_in, w_out, b_out, out, xs,
+                                         os, R, C, L, H);
+  return run_attn<__nv_bfloat16, false>(x, w_in, b_in, w_out, b_out, out, xs,
+                                        os, R, C, L, H);
+}
+
+long vf_attn_scratch_rows(int R, int L) { return vf::attn_scratch_rows(R, L); }
+
 size_t vf_block_smem_bytes(int C, int H, int L, int M, int tsize) {
   return vf::block_smem_bytes(C, H, L, M, tsize);
 }
 
 size_t vf_ln_mlp_smem_bytes(int C, int M, int tsize) {
   return vf::ln_mlp_smem_bytes(C, M, tsize);
+}
+
+size_t vf_attn_smem_bytes(int C, int H, int L, int tsize) {
+  return vf::attn_smem_bytes(C, H, L, tsize);
 }
 
 }  // extern "C"

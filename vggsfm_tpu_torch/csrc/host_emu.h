@@ -120,11 +120,13 @@ inline std::barrier<>* emu_barrier = nullptr;
 
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 
-// Runs body(smem) for every thread of `grid` blocks of `threads` threads.
+// Runs body(smem) for every thread of `grid` x `grid_y` blocks of `threads`
+// threads, blockIdx.x fastest.
 template <class F>
-void emu_launch(int grid, int threads, size_t smem_bytes, F body) {
+void emu_launch(int grid, int threads, size_t smem_bytes, F body,
+                int grid_y = 1) {
   std::vector<float> smem((smem_bytes + 3) / 4 + 4);
-  for (int b = 0; b < grid; ++b) {
+  for (int b = 0; b < grid * grid_y; ++b) {
     // fill with NaN so reads of never-written shared memory show up
     std::fill(smem.begin(), smem.end(), NAN);
     std::barrier<> bar(threads);
@@ -134,7 +136,8 @@ void emu_launch(int grid, int threads, size_t smem_bytes, F body) {
     for (int t = 0; t < threads; ++t)
       pool.emplace_back([&, t, b] {
         threadIdx.x = unsigned(t);
-        blockIdx.x = unsigned(b);
+        blockIdx.x = unsigned(b % grid);
+        blockIdx.y = unsigned(b / grid);
         body(reinterpret_cast<unsigned char*>(smem.data()));
       });
     for (auto& th : pool) th.join();

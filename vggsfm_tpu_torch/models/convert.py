@@ -1,13 +1,20 @@
-"""JAX tracker params -> the port's state_dict.
+"""JAX tracker and camera params -> the port's state_dicts.
 
 `tracker_state_dict_from_jax` inverts vggsfm_tpu/models/convert.py's
-`convert_tracker` (its :81-153): HWIO -> OIHW convs, (in, out) -> (out, in)
+`convert_tracker` (its :81-153), `camera_state_dict_from_jax` its
+`convert_camera_predictor` with `convert_dinov2` (:155-208). The tracker's
+mapping: HWIO -> OIHW convs, (in, out) -> (out, in)
 linears, the packed ``in_proj`` -> ``in_proj_weight``/``in_proj_bias``,
 ``norm_scale``/``norm_bias`` -> ``norm.weight``/``norm.bias``, and the
 reference's Sequential indices (``ffeat_updater.0``, ``vis_predictor.0``,
 ``downsample.0``) and key typo ``virual_tracks``. The resulting keys and
 shapes are the reference checkpoint's ``track_predictor.*`` entries with
 the prefix stripped, so `TrackerPredictor.load_state_dict` takes either.
+
+The camera's adds LayerNorm ``scale`` -> ``weight``, the DINOv2 block names
+(``mlp_fc1`` -> ``mlp.fc1``, ``ls1_gamma`` -> ``ls1.gamma``,
+``patch_embed`` -> ``patch_embed.proj``), and the ``mask_token`` the JAX
+module does not keep (zeros, never used).
 
 Pure numpy in, torch tensors out; no JAX import.
 """
@@ -111,4 +118,58 @@ def tracker_state_dict_from_jax(params_np) -> dict:
     _shallow_encoder(sd, "fine_fnet", p["fine_fnet"])
     _base_predictor(sd, "coarse_predictor", p["coarse_predictor"])
     _base_predictor(sd, "fine_predictor", p["fine_predictor"])
+    return sd
+
+
+def _norm(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _dinov2(sd, prefix, p):
+    cls = np.asarray(p["cls_token"])
+    sd[f"{prefix}.cls_token"] = _t(cls)
+    sd[f"{prefix}.mask_token"] = torch.zeros(1, cls.shape[-1])
+    sd[f"{prefix}.register_tokens"] = _t(p["register_tokens"])
+    sd[f"{prefix}.pos_embed"] = _t(p["pos_embed"])
+    _conv(sd, f"{prefix}.patch_embed.proj", p["patch_embed"])
+    _norm(sd, f"{prefix}.norm", p["norm"])
+    i = 0
+    while f"blocks_{i}" in p:
+        blk, b = p[f"blocks_{i}"], f"{prefix}.blocks.{i}"
+        _norm(sd, f"{b}.norm1", blk["norm1"])
+        _norm(sd, f"{b}.norm2", blk["norm2"])
+        _dense(sd, f"{b}.attn.qkv", blk["attn"]["qkv"])
+        _dense(sd, f"{b}.attn.proj", blk["attn"]["proj"])
+        _dense(sd, f"{b}.mlp.fc1", blk["mlp_fc1"])
+        _dense(sd, f"{b}.mlp.fc2", blk["mlp_fc2"])
+        sd[f"{b}.ls1.gamma"] = _t(blk["ls1_gamma"])
+        sd[f"{b}.ls2.gamma"] = _t(blk["ls2_gamma"])
+        i += 1
+
+
+def camera_state_dict_from_jax(params_np) -> dict:
+    """JAX `CameraPredictor` params (a numpy pytree, with or without the
+    outer ``{"params": ...}``) -> the port's CameraPredictor state_dict."""
+    p = params_np.get("params", params_np)
+    sd: dict = {}
+    _dinov2(sd, "backbone", p["backbone"])
+    _mlp(sd, "input_transform", p["input_transform"])
+    sd["pose_token"] = _t(p["pose_token"])
+    i = 0
+    while f"self_att_{i}" in p:
+        _mha(sd, f"self_att.{i}.attn", p[f"self_att_{i}"]["attn"])
+        _mlp(sd, f"self_att.{i}.mlp", p[f"self_att_{i}"]["mlp"])
+        cb, pre = p[f"cross_att_{i}"], f"cross_att.{i}"
+        _mha(sd, f"{pre}.cross_attn", cb["cross_attn"])
+        _norm(sd, f"{pre}.norm_context", cb["norm_context"])
+        _mlp(sd, f"{pre}.mlp", cb["mlp"])
+        i += 1
+    i = 0
+    while f"trunk_{i}" in p:
+        _mha(sd, f"trunk.{i}.attn", p[f"trunk_{i}"]["attn"])
+        _mlp(sd, f"trunk.{i}.mlp", p[f"trunk_{i}"]["mlp"])
+        i += 1
+    _mlp(sd, "pose_branch", p["pose_branch"])
+    _dense(sd, "ffeat_updater.0", p["ffeat_updater"])
     return sd

@@ -50,3 +50,24 @@ def get_2d_embedding(xy: torch.Tensor, C: int,
     if cat_coords:
         pe = torch.cat([xy, pe], dim=-1)
     return pe
+
+
+def harmonic_embedding(x: torch.Tensor, n_harmonic_functions: int = 10,
+                       omega_0: float = 1.0, logspace: bool = True,
+                       append_input: bool = False) -> torch.Tensor:
+    """[sin(2^k w x) | cos(2^k w x)] harmonic embedding, (..., D) ->
+    (..., 2 D n) (+ D with `append_input`); the camera's PoseEmbedding
+    (reference minipytorch3d/harmonic_embedding.py)."""
+    if logspace:
+        freqs = 2.0 ** torch.arange(n_harmonic_functions, dtype=torch.float32,
+                                    device=x.device)
+    else:
+        freqs = torch.linspace(1.0, 2.0 ** (n_harmonic_functions - 1),
+                               n_harmonic_functions, dtype=torch.float32,
+                               device=x.device)
+    embed = (x[..., None] * (freqs * omega_0)).reshape(
+        *x.shape[:-1], x.shape[-1] * n_harmonic_functions)
+    out = [torch.sin(embed), torch.cos(embed)]
+    if append_input:
+        out.append(x)
+    return torch.cat(out, dim=-1)

@@ -10,8 +10,11 @@ Conventions kept from the reference (vggsfm/models/modules.py):
     ``in_proj_weight``/``in_proj_bias`` + ``out_proj``), so the module's
     state_dict keys are the reference checkpoint's.
 
-Parameters are stored in float32; each module computes in its ``dtype``
-(weights cast at use), as the JAX modules' ``dtype`` field does.
+Parameters are stored in float32. Each module rounds its weights to its
+``dtype`` at use and computes in the promotion of that dtype and its
+input's, as jnp does for the JAX modules: bf16 tokens stay bf16 (the
+tracker), while f32 tokens meet bf16-rounded weights in f32 (the camera
+former's self-attention and trunk blocks).
 """
 
 from __future__ import annotations
@@ -22,8 +25,12 @@ import torch.nn.functional as F
 
 from vggsfm_tpu_torch.ops.fused_mlp import (
     block_kernel_takes,
+    fused_ln_attn,
     fused_ln_mlp,
+    fused_ln_mlp_ref,
     fused_transformer_block,
+    ln_attn_takes,
+    mlp_route_takes,
 )
 
 
@@ -47,17 +54,20 @@ class TorchMultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
 
-    def packed(self):
-        """(w_in, b_in, w_out, b_out) in the compute dtype."""
-        dt = self.dtype
-        return (self.in_proj_weight.to(dt), self.in_proj_bias.to(dt),
-                self.out_proj.weight.to(dt), self.out_proj.bias.to(dt))
+    def packed(self, cdt=None):
+        """(w_in, b_in, w_out, b_out) rounded to the module dtype, in the
+        compute dtype `cdt` (default: the module dtype)."""
+        dt, cdt = self.dtype, cdt or self.dtype
+        return tuple(p.to(dt).to(cdt) for p in (
+            self.in_proj_weight, self.in_proj_bias, self.out_proj.weight,
+            self.out_proj.bias))
 
     def forward(self, q, k, v):
         C, H = self.dim, self.num_heads
         D = C // H
-        w, b, wo, bo = self.packed()
-        q, k, v = q.to(self.dtype), k.to(self.dtype), v.to(self.dtype)
+        cdt = torch.promote_types(q.dtype, self.dtype)
+        w, b, wo, bo = self.packed(cdt)
+        q, k, v = q.to(cdt), k.to(cdt), v.to(cdt)
         if q is k and k is v:
             xq, xk, xv = F.linear(q, w, b).chunk(3, dim=-1)
         else:
@@ -75,8 +85,16 @@ class TorchMultiheadAttention(nn.Module):
         return F.linear(out, wo, bo)
 
     def ln_self_attention(self, x):
-        """The pre-LN attention half LN(x) + attn(LN(x)), plain."""
-        xn = _ln_noaffine(x.to(self.dtype))
+        """The pre-LN attention half LN(x) + attn(LN(x)) on x (B, L, C):
+        the fused_ln_attn kernel for groups it takes (L <= 64), else
+        plain."""
+        B, L, C = x.shape
+        x = x.to(torch.promote_types(x.dtype, self.dtype))
+        if ln_attn_takes(C, L, self.num_heads):
+            out = fused_ln_attn(x.reshape(B * L, C).contiguous(),
+                                *self.packed(x.dtype), L, self.num_heads)
+            return out.reshape(B, L, C)
+        xn = _ln_noaffine(x)
         return xn + self(xn, xn, xn)
 
 
@@ -90,21 +108,27 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
 
-    def packed(self):
-        dt = self.dtype
-        return (self.fc1.weight.to(dt), self.fc1.bias.to(dt),
-                self.fc2.weight.to(dt), self.fc2.bias.to(dt))
+    def packed(self, cdt=None):
+        """(w1, b1, w2, b2) rounded to the module dtype, in the compute
+        dtype `cdt` (default: the module dtype)."""
+        dt, cdt = self.dtype, cdt or self.dtype
+        return tuple(p.to(dt).to(cdt) for p in (
+            self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias))
 
     def forward(self, x, ln_residual: bool = False):
         """Plain MLP — or, with ``ln_residual``, the transformer tail
-        ``x + fc2(gelu(fc1(LN(x))))`` through the fused_ln_mlp kernel."""
-        w1, b1, w2, b2 = self.packed()
-        x = x.to(self.dtype)
+        ``x + fc2(gelu(fc1(LN(x))))``: the fused_ln_mlp kernel where
+        `mlp_route_takes` the dtype and width, else the same function
+        plain."""
+        x = x.to(torch.promote_types(x.dtype, self.dtype))
+        w1, b1, w2, b2 = self.packed(x.dtype)
         if not ln_residual:
             return F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
         lead, C = x.shape[:-1], x.shape[-1]
-        out = fused_ln_mlp(x.reshape(-1, C).contiguous(), w1, b1, w2, b2)
-        return out.reshape(*lead, w2.shape[0])
+        x2 = x.reshape(-1, C).contiguous()
+        tail = fused_ln_mlp if mlp_route_takes(x.dtype, C) else \
+            fused_ln_mlp_ref
+        return tail(x2, w1, b1, w2, b2).reshape(*lead, w2.shape[0])
 
 
 class AttnBlock(nn.Module):
@@ -120,15 +144,15 @@ class AttnBlock(nn.Module):
 
     def forward(self, x):
         B, L, C = x.shape
-        x = x.to(self.dtype)
+        x = x.to(torch.promote_types(x.dtype, self.dtype))
         if block_kernel_takes(C, L, self.attn.num_heads):
             # the whole block as one fused_transformer_block kernel
             out = fused_transformer_block(
-                x.reshape(B * L, C).contiguous(), *self.attn.packed(),
-                *self.mlp.packed(), L, self.attn.num_heads)
+                x.reshape(B * L, C).contiguous(), *self.attn.packed(x.dtype),
+                *self.mlp.packed(x.dtype), L, self.attn.num_heads)
             return out.reshape(B, L, C)
-        # groups longer than the kernel takes: plain attention half, then
-        # the fused_ln_mlp kernel for the MLP half
+        # shapes the block kernel does not take: the two halves, each
+        # through its own kernel where that takes the shape
         return self.mlp(self.attn.ln_self_attention(x), ln_residual=True)
 
 
@@ -146,7 +170,9 @@ class CrossAttnBlock(nn.Module):
                        hidden_size, dtype)
 
     def forward(self, x, context):
-        x = _ln_noaffine(x.to(self.dtype))
+        # LN in f32 of x as it comes, rounded once to the module dtype (as
+        # flax's LayerNorm(dtype=...)): the camera's f32 tokens turn bf16
+        x = _ln_noaffine(x).to(self.dtype)
         context = F.layer_norm(context.float(), (context.shape[-1],),
                                self.norm_context.weight,
                                self.norm_context.bias,

@@ -61,9 +61,11 @@ def ncc_subpixel_refine(images: torch.Tensor, coords: torch.Tensor,
 
     For every track and frame, slide the query frame's (2 win + 1)^2 gray
     window over a +/- search integer grid around the rounded estimate,
-    take the NCC argmax and parabola-fit it to sub-pixel. The searched
-    region is shifted inside the frame at the borders and the estimate
-    re-centered on it (vggsfm_tpu/models/refine.py:187-196).
+    take the NCC argmax and parabola-fit it to sub-pixel. At the borders
+    the JAX package's two branches are kept (its refine.py:187-206): where
+    H % 8 == 0 and W % 128 == 0 the searched region is shifted inside the
+    frame and the estimate re-centered on it; at other frame shapes each
+    tap is clamped to the frame.
 
     images (B, S, H, W, 3) in [0, 1]; coords (B, S, N, 2), frame 0 the
     query (stays pinned). Returns (refined coords, peak NCC confidence
@@ -103,12 +105,22 @@ def ncc_subpixel_refine(images: torch.Tensor, coords: torch.Tensor,
     tmpl = tmpl * torch.rsqrt((tmpl * tmpl).sum(-1, keepdim=True) + 1e-8)
 
     base = torch.round(coords).long()
-    tl_x = (base[..., 0] - (win + search)).clamp(0, W - gsz)
-    tl_y = (base[..., 1] - (win + search)).clamp(0, H - gsz)
-    region = _gather_windows(gray.reshape(B * S, H, W, 1),
-                             tl_x.reshape(B * S, N), tl_y.reshape(B * S, N),
-                             gsz)[..., 0].reshape(B, S, N, gsz, gsz)
-    base = torch.stack([tl_x + win + search, tl_y + win + search], dim=-1)
+    if H % 8 == 0 and W % 128 == 0:
+        tl_x = (base[..., 0] - (win + search)).clamp(0, W - gsz)
+        tl_y = (base[..., 1] - (win + search)).clamp(0, H - gsz)
+        region = _gather_windows(gray.reshape(B * S, H, W, 1),
+                                 tl_x.reshape(B * S, N),
+                                 tl_y.reshape(B * S, N),
+                                 gsz)[..., 0].reshape(B, S, N, gsz, gsz)
+        base = torch.stack([tl_x + win + search, tl_y + win + search],
+                           dim=-1)
+    else:
+        gy, gx = _window_grid(gsz, dev)
+        rx = (base[..., 0, None, None] + gx - (win + search)).clamp(0, W - 1)
+        ry = (base[..., 1, None, None] + gy - (win + search)).clamp(0, H - 1)
+        region = torch.gather(gray.reshape(B * S, H * W), 1,
+                              (ry * W + rx).reshape(B * S, N * gsz * gsz)
+                              ).reshape(B, S, N, gsz, gsz)
 
     osz = 2 * search + 1
     wins = region.unfold(3, wsz, 1).unfold(4, wsz, 1)  # (B,S,N,o,o,w,w)

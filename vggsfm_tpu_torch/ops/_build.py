@@ -111,6 +111,12 @@ def _declare(lib, with_stream: bool):
     lib.vf_block_smem_bytes.restype = ctypes.c_size_t
     lib.vf_ln_mlp_smem_bytes.argtypes = [ci] * 3
     lib.vf_ln_mlp_smem_bytes.restype = ctypes.c_size_t
+    lib.vf_fused_ln_attn.argtypes = [ci] + [vp] * 8 + [ci] * 4 + tail
+    lib.vf_fused_ln_attn.restype = ci
+    lib.vf_attn_scratch_rows.argtypes = [ci] * 2
+    lib.vf_attn_scratch_rows.restype = ctypes.c_long
+    lib.vf_attn_smem_bytes.argtypes = [ci] * 4
+    lib.vf_attn_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 

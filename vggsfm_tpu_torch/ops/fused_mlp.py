@@ -1,16 +1,17 @@
-"""Fused former ops: a whole pre-LN transformer block, and the
-LN -> MLP -> residual tail.
+"""Fused former ops: a whole pre-LN transformer block, the
+LN -> MLP -> residual tail, and the LN -> attention -> residual half.
 
 Counterparts of vggsfm_tpu/ops/fused_mlp.py (`fused_transformer_block`,
-`fused_ln_mlp`). Weights are in torch ``nn.Linear`` / ``nn.MultiheadAttention``
-layout, (out, in). Each op has
+`fused_ln_mlp`, `fused_ln_attn`). Weights are in torch ``nn.Linear`` /
+``nn.MultiheadAttention`` layout, (out, in). Each op has
 
   * a hand-written CUDA kernel (csrc/fused_former.cu, built at first use
     by ops/_build.py), which the wrapper launches for CUDA tensors — or
     raises, if the kernel does not take the inputs;
   * a plain PyTorch version (``*_ref``) of the same function with the same
     rounding points, which the wrapper takes only for CPU tensors;
-  * a launch counter (`launch_counts`), bumped once per kernel launch.
+  * a launch counter (`launch_counts`), bumped once per kernel launch:
+    one per call of the first two ops, ATTN_KERNELS per `fused_ln_attn`.
 
 Numerics (as the TPU kernels): LN without affine, eps 1e-6, statistics in
 f32; every matrix product accumulates in f32; the normalized input, q/k/v,
@@ -26,12 +27,18 @@ import torch.nn.functional as F
 
 from vggsfm_tpu_torch.ops import _build
 
-# mirrors the kernel's limits (csrc/fused_former.cuh check_*_shape)
-MAX_C = 384
+# mirrors the kernels' limits (csrc/fused_former.cuh check_*_shape)
+MAX_C = 384          # whole-block kernel (64-row register tile)
+MAX_WIDE_C = 768     # ln_mlp (32-row tile above 384) and ln_attn
 MAX_L = 64
-MAX_HEAD_DIM = 64
+MAX_HEAD_DIM = 64    # whole-block kernel
+MAX_ATTN_HEAD_DIM = 128
 
-launch_counts = {"fused_transformer_block": 0, "fused_ln_mlp": 0}
+launch_counts = {"fused_transformer_block": 0, "fused_ln_mlp": 0,
+                 "fused_ln_attn": 0}
+# kernels one fused_ln_attn call launches: LayerNorm, per-head attention,
+# out-projection
+ATTN_KERNELS = 3
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,13 +50,32 @@ def reset_launch_counts() -> None:
 
 def block_kernel_takes(C: int, seq_len: int, num_heads: int) -> bool:
     """Whether the whole-block kernel takes rows of width C in groups of
-    `seq_len`; beyond it AttnBlock runs plain attention + fused_ln_mlp."""
-    return (mlp_kernel_takes(C) and 1 <= seq_len <= MAX_L
+    `seq_len`; beyond it AttnBlock runs its two halves (`ln_attn_takes`,
+    `mlp_route_takes`)."""
+    return (16 <= C <= MAX_C and C % 16 == 0 and 1 <= seq_len <= MAX_L
             and C % num_heads == 0 and C // num_heads <= MAX_HEAD_DIM)
 
 
 def mlp_kernel_takes(C: int) -> bool:
-    return 16 <= C <= MAX_C and C % 16 == 0
+    return 16 <= C <= MAX_WIDE_C and C % 16 == 0
+
+
+def mlp_route_takes(dtype, C: int) -> bool:
+    """Whether a pre-LN MLP tail of width C in `dtype` goes to the
+    fused_ln_mlp kernel. f32 rows wider than 384 stay plain: the kernel's
+    f32 instantiation runs on the CUDA cores, measured ~3x slower than the
+    plain cuBLAS version at C = 384 (PERF.md), and the JAX package keeps
+    those tails (the camera's 768-wide f32 trunk and self-attention MLPs)
+    on its plain path too."""
+    return mlp_kernel_takes(C) and (dtype == torch.bfloat16 or C <= MAX_C)
+
+
+def ln_attn_takes(C: int, seq_len: int, num_heads: int) -> bool:
+    """Whether the fused_ln_attn kernel takes rows of width C in groups of
+    `seq_len` with `num_heads` heads; longer groups run plain attention."""
+    return (16 <= C <= MAX_WIDE_C and C % 16 == 0 and 1 <= seq_len <= MAX_L
+            and C % num_heads == 0
+            and C // num_heads <= MAX_ATTN_HEAD_DIM)
 
 
 # --------------------------------------------------------------- plain
@@ -81,13 +107,11 @@ def fused_ln_mlp_ref(x, w1, b1, w2, b2):
     return _mlp_tail32(x.float(), w1, b1, w2, b2, x.dtype).to(x.dtype)
 
 
-def fused_transformer_block_ref(x, w_in, b_in, w_out, b_out, w1, b1, w2,
-                                b2, seq_len: int, num_heads: int):
-    """Plain version of `fused_transformer_block`: x (R, C) with each
-    group of `seq_len` consecutive rows one attention group."""
+def _attn_half32(x, w_in, b_in, w_out, b_out, L, H):
+    """LN(x) + out_proj(attention(LN(x))) in f32, attention within each
+    group of L consecutive rows, rounding where the kernels do."""
     dt = x.dtype
     R, C = x.shape
-    L, H = seq_len, num_heads
     D = C // H
     xn32 = _ln32(x.float())
     qkv = _rt(_rt(xn32, dt) @ w_in.float().t() + b_in.float(), dt)
@@ -95,8 +119,23 @@ def fused_transformer_block_ref(x, w_in, b_in, w_out, b_out, w1, b1, w2,
     s = torch.einsum("blhd,bmhd->bhlm", q, k) * (1.0 / D ** 0.5)
     p = _rt(torch.softmax(s, -1), dt)
     o = _rt(torch.einsum("bhlm,bmhd->blhd", p, v), dt).reshape(R, C)
-    x1 = xn32 + (o @ w_out.float().t() + b_out.float())
-    return _mlp_tail32(x1, w1, b1, w2, b2, dt).to(dt)
+    return xn32 + (o @ w_out.float().t() + b_out.float())
+
+
+def fused_ln_attn_ref(x, w_in, b_in, w_out, b_out, seq_len: int,
+                      num_heads: int):
+    """Plain version of `fused_ln_attn`: x (R, C) with each group of
+    `seq_len` consecutive rows one attention group."""
+    return _attn_half32(x, w_in, b_in, w_out, b_out, seq_len,
+                        num_heads).to(x.dtype)
+
+
+def fused_transformer_block_ref(x, w_in, b_in, w_out, b_out, w1, b1, w2,
+                                b2, seq_len: int, num_heads: int):
+    """Plain version of `fused_transformer_block`: x (R, C) with each
+    group of `seq_len` consecutive rows one attention group."""
+    x1 = _attn_half32(x, w_in, b_in, w_out, b_out, seq_len, num_heads)
+    return _mlp_tail32(x1, w1, b1, w2, b2, x.dtype).to(x.dtype)
 
 
 # --------------------------------------------------------------- wrappers
@@ -135,8 +174,8 @@ def fused_ln_mlp(x, w1, b1, w2, b2):
            {"x": (R, C), "w1": (M, C), "b1": (M,), "w2": (C, M),
             "b2": (C,)})
     if not mlp_kernel_takes(C):
-        raise ValueError(f"fused_ln_mlp kernel takes 16 <= C <= {MAX_C}, "
-                         f"C % 16 == 0; got C={C}")
+        raise ValueError(f"fused_ln_mlp kernel takes 16 <= C <= "
+                         f"{MAX_WIDE_C}, C % 16 == 0; got C={C}")
     out = torch.empty_like(x)
     if R == 0:
         return out
@@ -191,4 +230,49 @@ def fused_transformer_block(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2,
         raise RuntimeError(
             f"fused_transformer_block kernel launch failed: code {rc}")
     launch_counts["fused_transformer_block"] += 1
+    return out
+
+
+def fused_ln_attn(x, w_in, b_in, w_out, b_out, seq_len: int, num_heads: int):
+    """LN(x) + out_proj(attention(LN(x))) on x (R, C), attention within
+    each group of `seq_len` consecutive rows; LN eps 1e-6 without affine,
+    the residual base the normalized input.
+
+    w_in (3C, C), b_in (3C,) packed q|k|v; w_out (C, C), b_out (C,), of
+    x's dtype. CPU tensors take `fused_ln_attn_ref`; CUDA tensors launch
+    the op's ATTN_KERNELS kernels (LayerNorm, per-head attention,
+    out-projection, in row tiles the kernels choose from `seq_len`;
+    csrc/fused_former.cuh) or raise. Returns (R, C) in x's dtype.
+    """
+    if x.device.type == "cpu":
+        return fused_ln_attn_ref(x, w_in, b_in, w_out, b_out, seq_len,
+                                 num_heads)
+    R, C = x.shape
+    _check(x, {"x": x, "w_in": w_in, "b_in": b_in, "w_out": w_out,
+               "b_out": b_out},
+           {"x": (R, C), "w_in": (3 * C, C), "b_in": (3 * C,),
+            "w_out": (C, C), "b_out": (C,)})
+    if not ln_attn_takes(C, seq_len, num_heads) or R % seq_len:
+        raise ValueError(
+            f"fused_ln_attn kernel takes 16 <= C <= {MAX_WIDE_C} "
+            f"(C % 16 == 0), 1 <= L <= {MAX_L}, head dim <= "
+            f"{MAX_ATTN_HEAD_DIM} and R % L == 0; got R={R}, C={C}, "
+            f"L={seq_len}, H={num_heads}")
+    out = torch.empty_like(x)
+    if R == 0:
+        return out
+    lib = _build.load_library()
+    # scratch tiles per row tile: the normalized rows and the head outputs
+    xs = torch.empty(lib.vf_attn_scratch_rows(R, seq_len), C, dtype=x.dtype,
+                     device=x.device)
+    os_ = torch.empty_like(xs)
+    with torch.cuda.device(x.device):
+        rc = lib.vf_fused_ln_attn(
+            _DTYPES[x.dtype], x.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+            w_out.data_ptr(), b_out.data_ptr(), out.data_ptr(),
+            xs.data_ptr(), os_.data_ptr(), R, C, seq_len, num_heads,
+            _stream())
+    if rc != 0:
+        raise RuntimeError(f"fused_ln_attn kernel launch failed: code {rc}")
+    launch_counts["fused_ln_attn"] += ATTN_KERNELS
     return out

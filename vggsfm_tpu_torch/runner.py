@@ -1,7 +1,9 @@
-"""VGGSfMRunner, tracking stage: feature maps -> coarse tracks -> fine
-tracks, chunked over query points. Counterpart of the tracking part of
-vggsfm_tpu/runner.py (`_fmaps`, `_coarse_track`, `_fine_track`,
-`predict_tracks`; reference runners/runner.py:1068-1198).
+"""VGGSfMRunner, the first stages of the sparse pipeline: query-frame
+ranking, camera initialization, and tracking (feature maps -> coarse
+tracks -> fine tracks, chunked over query points). Counterpart of those
+parts of vggsfm_tpu/runner.py (`select_query_frames`, `sparse_reconstruct`'s
+step 2, `_fmaps`, `_coarse_track`, `_fine_track`, `predict_tracks`;
+reference runners/runner.py:344-354, 1068-1198).
 
 Query points come from the caller: the extractors are a later slice of the
 port. Runs on the GPU unless the caller passes ``device="cpu"``.
@@ -16,8 +18,16 @@ import time
 import numpy as np
 import torch
 
+from vggsfm_tpu_torch.geometry.cameras import pose_encoding_to_extri_intri
+from vggsfm_tpu_torch.models.camera import CameraPredictor, init_camera_
 from vggsfm_tpu_torch.models.refine import refine_track
 from vggsfm_tpu_torch.models.tracker import TrackerPredictor, init_tracker_
+from vggsfm_tpu_torch.utils.camera_avg import (
+    average_camera_prediction,
+    rank_by_dino_similarity,
+    rank_by_interval,
+    rank_by_midpoint,
+)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -33,8 +43,17 @@ def resolve_device(device="cuda") -> torch.device:
 
 @dataclasses.dataclass
 class RunnerConfig:
-    """The tracking fields of vggsfm_tpu.runner.RunnerConfig."""
+    """The query-ranking, camera and tracking fields of
+    vggsfm_tpu.runner.RunnerConfig."""
 
+    query_frame_num: int = 3
+    # ensemble the camera prediction over the query orderings
+    avg_pose: bool = True
+    # midpoint query ranking instead of DINO-similarity FPS
+    query_by_midpoint: bool = False
+    # stride ranking 0, k, 2k, ... with k = S // query_num + 1 (midpoint
+    # takes precedence when both are set)
+    query_by_interval: bool = False
     fine_tracking: bool = True
     coarse_iters: int = 6
     max_points_num: int = 163840  # track-frames per coarse tracker call
@@ -49,22 +68,44 @@ class RunnerConfig:
 
 
 class VGGSfMRunner:
+    """`state_dict` / `camera_state_dict`: the tracker's and the camera
+    predictor's weights (the reference checkpoint's ``track_predictor.*``
+    and ``camera_predictor.*`` entries, prefix stripped); seeded random
+    weights otherwise. The camera predictor is built on its first use."""
+
     def __init__(self, cfg: RunnerConfig = RunnerConfig(), device="cuda",
-                 state_dict: dict | None = None):
+                 state_dict: dict | None = None,
+                 camera_state_dict: dict | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.precision not in ("bf16", "f32"):
             raise ValueError(f"precision must be 'bf16' or 'f32', got "
                              f"{cfg.precision!r}")
-        dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
-        tracker = TrackerPredictor(dtype=dtype)
+        self.dtype = (torch.bfloat16 if cfg.precision == "bf16"
+                      else torch.float32)
+        tracker = TrackerPredictor(dtype=self.dtype)
         if state_dict is not None:
             tracker.load_state_dict(state_dict)
         else:
             init_tracker_(tracker, torch.Generator().manual_seed(cfg.seed))
         self._weights_loaded = state_dict is not None
         self.tracker = tracker.to(self.device).eval()
+        self._camera_state_dict = camera_state_dict
+        self._camera = None
         self.timings: dict = {}
+
+    @property
+    def camera(self) -> CameraPredictor:
+        """The camera predictor (DINOv2 + pose trunk), built on first use."""
+        if self._camera is None:
+            camera = CameraPredictor(dtype=self.dtype)
+            if self._camera_state_dict is not None:
+                camera.load_state_dict(self._camera_state_dict)
+            else:
+                init_camera_(camera,
+                             torch.Generator().manual_seed(self.cfg.seed))
+            self._camera = camera.to(self.device).eval()
+        return self._camera
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -113,6 +154,43 @@ class VGGSfMRunner:
                                 compute_score=True, matching_init=minit,
                                 subpixel_refine=subpix,
                                 patch_dtype=tr.dtype)
+
+    @torch.inference_mode()
+    def select_query_frames(self, images) -> list:
+        """Rank the query frames of (1, S, H, W, 3) images in [0, 1]:
+        DINO-similarity farthest-point sampling by default, midpoint or
+        interval spread as configured. Frame 0 first."""
+        cfg = self.cfg
+        images = self._to_device(images)
+        S = images.shape[1]
+        q = min(cfg.query_frame_num, S)
+        with self._stage("query_rank"):
+            if q <= 1 or S <= 2:
+                return [0]
+            if cfg.query_by_midpoint:
+                return rank_by_midpoint(S, q)
+            if cfg.query_by_interval:
+                return rank_by_interval(S, S // q + 1)[:q]
+            desc = self.camera.frame_descriptors(images)
+            return rank_by_dino_similarity(desc[0], q)[:q]
+
+    @torch.inference_mode()
+    def camera_init(self, images, query_indices):
+        """Cameras of (1, S, H, W, 3) images in [0, 1] from the camera
+        predictor (4 trunk iterations): with `avg_pose`, one batched forward
+        over the orderings that put each query frame first, averaged;
+        else one forward. Returns (extrinsics (S, 3, 4), intrinsics
+        (S, 3, 3)), f32, relative to frame 0."""
+        images = self._to_device(images)
+        H, W = images.shape[2:4]
+        with self._stage("camera_init"):
+            if self.cfg.avg_pose:
+                return average_camera_prediction(
+                    lambda im: self.camera(im, iters=4)["pred_pose_enc"],
+                    images, (H, W), query_indices=list(query_indices),
+                    model_input_size=self.camera.down_size)
+            pose_enc = self.camera(images, iters=4)["pred_pose_enc"]
+            return pose_encoding_to_extri_intri(pose_enc[0], (H, W))
 
     @torch.inference_mode()
     def fmaps(self, images):
