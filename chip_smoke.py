@@ -12,7 +12,13 @@ prints no result line):
    shapes (the tracker's, the camera trunk's and cross-attention tails',
    and the attention probe's), in bf16 and f32, against its plain PyTorch
    version on the same inputs (each element within the stated bound:
-   `err_over_bound`), with both times and the bound;
+   `err_over_bound`), with both times and the bound; then the correlation
+   kernel at the few-track shapes (coarse level 0 and the coarsest level
+   with 48 and 63 tracks, the fine 31x31 32-channel maps with 16, 2 and 1
+   tracks in bf16 and f32, tracks inside, on and across every border and
+   far outside) against `corr_sample_plain`, each beside the full-map
+   `torch.matmul` + window form at the same shape, and both forms at 4096
+   tracks;
 3. slice: the full-width tracker through VGGSfMRunner.predict_tracks:
    8 frames at 1024 px, 4096 query points, one query frame, 6 coarse
    iterations and fine tracking, bf16, seeded random weights with a
@@ -36,6 +42,24 @@ prints no result line):
    must agree. It also prints, on the CPU alone, how far the pose
    encodings move when the frames move by one f32 ulp, after one and
    after four trunk iterations.
+
+7. few tracks: 8 frames at 1024 px, bf16, every frame a query frame, the
+   runner extracting 48 ALIKED points per frame (seeded weights), coarse
+   and fine tracking: 8 coarse calls of 48 tracks, each 6 iterations x 5
+   pyramid levels of the correlation kernel (240 `corr_sample_pallas`
+   launches beside the former kernels'); then the fine predictor called
+   directly on NHWC 31x31 32-channel maps with 16 tracks (3 levels x 4
+   iterations of `corr_sample_pallas_smallc`). Checks shapes, finite
+   values and the launch counts; then `track_frames` on the same frames
+   with its re-query of the short frames (3 rounds, 17 coarse calls); then
+   both against the CPU at a reduced size in f32 on the same query points
+   without the matching init, and with it on the kernel route against the
+   kernel's plain version on the card (gated) and against the CPU and the
+   matmul route (printed: this mode's argmax steps flip between devices);
+8. query points: `get_query_points_batched` on the 8 frames at 4096 points
+   for 'aliked', 'sift+harris' and 'sp+sift+aliked': the time of each, the
+   valid points (all inside the 4-px border), and the ALIKED score map in
+   f32 (TF32 off) on the card against the CPU.
 
 Then one JSON line describing each kernel, the card line again, and as the
 last line {"ok": true, "device": {...}}. Needs a CUDA GPU and the repo
@@ -113,6 +137,35 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _dev_us(ev):
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0.0))
+
+
+def device_time_ms(fn, iters: int, match: str):
+    """Device time per launch of the kernels whose name contains `match`,
+    from torch.profiler over `iters` calls of fn: what the kernel takes on
+    the card, where `cuda_time_ms` of a microsecond kernel reads the host's
+    launch rate. None where the profiler traces no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if match in ev.key and _dev_us(ev) > 0]
+        n = sum(ev.count for ev in evs)
+        return sum(_dev_us(ev) for ev in evs) / 1e3 / n if n else None
+    except Exception as e:  # the profiler may be unavailable on a host
+        print(f"profile: not available ({e!r})")
+        return None
 
 
 # ------------------------------------------------------------- phase 2
@@ -238,6 +291,162 @@ def kernel_phase(report: dict) -> None:
             del x, ws, out, ref
 
 
+# ------------------------------------------------- phase 2, correlation
+
+# The correlation kernel returns f32 sums of exact products (bf16 maps and
+# features are widened on load) and so does its plain version: they differ
+# by the order of up to (2r+2)^2 x 128-term f32 sums of O(1-30) values, from
+# f32 and from bf16 inputs alike. 1e-4 absolute on each element.
+CORR_TOL = 1e-4
+
+
+def corr_inputs(g, S, H, W, C, N, dtype):
+    """Maps, positions and features on the card. The first positions sit
+    on integer cells, on and across every border and far outside; the rest
+    are uniform over the map and a 6-cell margin around it."""
+    import torch
+
+    fmap = torch.randn(S, H, W, C, generator=g).to("cuda", dtype)
+    coords = torch.rand(S, N, 2, generator=g) * (W + 12.0) - 6.0
+    edge = torch.tensor([[3.0, 4.0], [-0.0, 0.0], [-1.0, H - 1.0],
+                         [W - 0.5, -0.25], [W + 2.5, H + 3.0],
+                         [-300.0, 5.0], [7.0, 1e6]])
+    coords[:, :min(N, len(edge))] = edge[:N]
+    feats = torch.randn(S, N, C, generator=g).to("cuda", dtype)
+    return fmap, coords.cuda(), feats
+
+
+def corr_work(fmap, coords, radius):
+    """Operations and bytes this call's data needs: each map cell under a
+    window read once (cells outside the map are not read; a cell under two
+    windows counts once), the features and positions once, the taps
+    written once; two operations per map value and window, eight per tap."""
+    import torch
+
+    from vggsfm_tpu_torch.ops.corr import window_index
+
+    S, H, W, C = fmap.shape
+    N = coords.shape[1]
+    idx, ok, _ = window_index(coords, radius, H, W)
+    frame = torch.arange(S, device=idx.device)[:, None, None] * (H * W)
+    cells_read = int(torch.unique((idx + frame)[ok]).numel())
+    taps = (2 * radius + 1) ** 2
+    tsize = fmap.element_size()
+    nbytes = (cells_read * C * tsize + S * N * (C * tsize + 8 + 4 * taps))
+    flops = 2 * int(ok.sum()) * C + 8 * S * N * taps
+    return flops, nbytes
+
+
+def matmul_window_form(fmap, coords, feats, radius):
+    """The full-map form of the same function: one matrix product per
+    frame, then the windows (what `corr_sample` runs for N >= 64)."""
+    import torch
+
+    from vggsfm_tpu_torch.models.tracker import _window_from_cmap
+
+    S, H, W, C = fmap.shape
+    cmap = torch.matmul(feats, fmap.reshape(S, H * W, C).transpose(-1, -2))
+    corr = _window_from_cmap(cmap, coords, radius, (H, W), feats.dtype)
+    return corr / float(C) ** 0.5
+
+
+def corr_kernel_phase(report: dict, extra: dict) -> None:
+    import torch
+
+    from vggsfm_tpu_torch.ops import corr as tc
+
+    g = torch.Generator().manual_seed(1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (label, S, H, W, C, r, N, dtype) at the few-track path's shapes
+    cases = [
+        ("coarse level 0, 48 tracks", 8, 128, 128, 128, 4, 48, f32),
+        ("coarse level 0, 63 tracks", 8, 128, 128, 128, 4, 63, f32),
+        ("coarse level 4 (8x8), 48 tracks", 8, 8, 8, 128, 4, 48, f32),
+        ("coarse level 4 (8x8), 63 tracks", 8, 8, 8, 128, 4, 63, f32),
+        ("fine level 0, 16 tracks", 8, 31, 31, 32, 3, 16, bf16),
+        ("fine level 0, 16 tracks", 8, 31, 31, 32, 3, 16, f32),
+        ("fine level 2 (7x7), 16 tracks", 8, 7, 7, 32, 3, 16, bf16),
+        ("fine level 0, 2 tracks", 8, 31, 31, 32, 3, 2, bf16),
+        ("fine level 0, 1 track", 8, 31, 31, 32, 3, 1, bf16),
+        ("fine level 0, 1 track", 8, 31, 31, 32, 3, 1, f32),
+        ("coarse level 0, 1 track", 8, 128, 128, 128, 4, 1, f32),
+        ("odd width C=33, 7 tracks", 2, 12, 14, 33, 1, 7, f32),
+    ]
+    main_case = {"corr_sample_pallas": ("coarse level 0, 48 tracks", f32),
+                 "corr_sample_pallas_smallc": ("fine level 0, 16 tracks",
+                                               bf16)}
+    for label, S, H, W, C, r, N, dtype in cases:
+        dn = str(dtype).split(".")[1]
+        name = ("corr_sample_pallas_smallc" if C < tc.SMALL_C
+                else "corr_sample_pallas")
+        fmap, coords, feats = corr_inputs(g, S, H, W, C, N, dtype)
+        out = tc.corr_sample_kernel(fmap, coords, feats, r)
+        torch.cuda.synchronize()
+        ref = tc.corr_sample_plain(fmap, coords, feats, r)
+        err = float((out - ref).abs().max())
+        # the window far outside the map: zeros, not a shifted window
+        far_ok = N < 6 or not bool(out[:, 5].any())
+        lib = matmul_window_form(fmap, coords, feats, r)
+        lib_err = float((lib.float() - ref).abs().max())
+        ms = cuda_time_ms(
+            lambda: tc.corr_sample_kernel(fmap, coords, feats, r), 50)
+        plain_ms = cuda_time_ms(
+            lambda: tc.corr_sample_plain(fmap, coords, feats, r), 20)
+        lib_ms = cuda_time_ms(
+            lambda: matmul_window_form(fmap, coords, feats, r), 20)
+        bms, by = bound_ms(*corr_work(fmap, coords, r), "float32")
+        ok = (bool(torch.isfinite(out).all()) and err <= CORR_TOL
+              and far_ok and out.dtype == torch.float32)
+        print(f"kernel {name} [{label}] S={S} {H}x{W} C={C} r={r} N={N} "
+              f"{dn}: max_abs_err={err:.3e} (bound {CORR_TOL:.0e}; matmul "
+              f"form vs plain {lib_err:.3e}) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} matmul_form_ms={lib_ms:.4f} "
+              f"bound_ms={bms:.5f} ({by}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{name} [{label}] {dn}: err {err}, far "
+                                 f"window zero {far_ok}")
+        if main_case[name] == (label, dtype):
+            dev_ms = device_time_ms(
+                lambda: tc.corr_sample_kernel(fmap, coords, feats, r), 50,
+                "vcorr")
+            print(f"kernel {name} [{label}] {dn}: {dev_ms} ms per launch on "
+                  f"the device (profiler, 50 launches); ms={ms:.4f} above is "
+                  f"the host's launch rate", flush=True)
+            report[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                                device_ms=dev_ms)
+        del fmap, coords, feats, out, ref, lib
+
+    # which form would serve many tracks: both at 4096 tracks per frame,
+    # in the tracker's dtype flow (the kernel's maps f32 at C = 128, bf16 at
+    # C = 32; the matmul form in bf16). Printed, not gated: the routing
+    # stays the JAX package's.
+    many = {}
+    for label, S, H, W, C, r, dtype in (
+            ("coarse level 0", 8, 128, 128, 128, 4, f32),
+            ("fine level 0", 8, 31, 31, 32, 3, bf16)):
+        fmap, coords, feats = corr_inputs(g, S, H, W, C, 4096, dtype)
+        out = tc.corr_sample_kernel(fmap, coords, feats, r)
+        lo_map, lo_feats = fmap.to(bf16), feats.to(bf16)
+        lib = matmul_window_form(lo_map, coords, lo_feats, r)
+        diff = float((out - lib.float()).abs().max())
+        ms = cuda_time_ms(
+            lambda: tc.corr_sample_kernel(fmap, coords, feats, r), 10)
+        lib_ms = cuda_time_ms(
+            lambda: matmul_window_form(lo_map, coords, lo_feats, r), 10)
+        bms, by = bound_ms(*corr_work(fmap, coords, r), "float32")
+        print(f"kernel corr_sample at 4096 tracks [{label}] S={S} {H}x{W} "
+              f"C={C} r={r}: kernel ms={ms:.4f} (bound_ms={bms:.4f}, {by}) "
+              f"bf16 matmul form ms={lib_ms:.4f}; max difference "
+              f"{diff:.3e} (the matmul form rounds its map to bf16)",
+              flush=True)
+        many[label] = {"kernel_ms": ms, "matmul_form_ms": lib_ms,
+                       "bound_ms": bms}
+        del fmap, coords, feats, out, lib, lo_map, lo_feats
+    extra["corr_4096_tracks"] = many
+
+
 # ------------------------------------------------------------- phase 3
 
 def make_frames(S, size, shift, device, seed=0):
@@ -264,13 +473,13 @@ def make_frames(S, size, shift, device, seed=0):
     return torch.stack(frames).permute(0, 2, 3, 1)[None].contiguous()
 
 
-def make_runner(precision, device, seed=0):
+def make_runner(precision, device, seed=0, **cfg):
     import torch
 
     from vggsfm_tpu_torch.runner import RunnerConfig, VGGSfMRunner
 
-    runner = VGGSfMRunner(RunnerConfig(precision=precision, seed=seed),
-                          device=device)
+    runner = VGGSfMRunner(RunnerConfig(precision=precision, seed=seed,
+                                       **cfg), device=device)
     # a non-zero flow head, so the formers move the tracks (a fresh
     # tracker's is zero)
     g = torch.Generator().manual_seed(seed + 1)
@@ -330,7 +539,8 @@ def slice_phase(report: dict, launches: dict) -> None:
     # (6 time + 6 virtual blocks) and 6 x 12 cross-attention tails, per
     # fine call 6 iterations x 4 time blocks
     want = {"fused_transformer_block": 72 + 24, "fused_ln_mlp": 72,
-            "fused_ln_attn": 0}
+            "fused_ln_attn": 0, "corr_sample_pallas": 0,
+            "corr_sample_pallas_smallc": 0}
     assert launches == want, f"launch counts {launches}, expected {want}"
 
     s = torch.arange(S, dtype=torch.float32)[:, None, None]
@@ -371,20 +581,18 @@ def profile_slice(drive, table_name) -> dict:
 
 
 def _report_profile(events, wall, table_name) -> dict:
-    def dev_us(ev):
-        return getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
-
     # device-side events only (a host op's entry repeats its kernels' time)
     kernels = sorted((ev for ev in events
                       if str(ev.device_type).endswith("CUDA")
-                      and dev_us(ev) > 0), key=dev_us, reverse=True)
-    busy_s = sum(dev_us(ev) for ev in kernels) / 1e6
+                      and _dev_us(ev) > 0), key=_dev_us, reverse=True)
+    busy_s = sum(_dev_us(ev) for ev in kernels) / 1e6
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, table_name), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
     # (the sort key's older name; newer PyTorch reads it as device time)
-    top = [(ev.key[:60], dev_us(ev) / 1e3, ev.count) for ev in kernels[:8]]
+    # the eight largest, and the correlation kernel wherever it stands
+    shown = kernels[:8] + [ev for ev in kernels[8:] if "vcorr" in ev.key]
+    top = [(ev.key[:60], _dev_us(ev) / 1e3, ev.count) for ev in shown]
     print(f"profile: wall {wall:.3f} s, device busy {busy_s:.3f} s "
           f"({busy_s / wall:.1%}); top device time:")
     for key, ms, n in top:
@@ -394,6 +602,15 @@ def _report_profile(events, wall, table_name) -> dict:
 
 
 # ------------------------------------------------------------- phase 4
+
+def track_agreement(a, b):
+    """(median, max, share of tracks within 1e-2 px in every frame) of
+    |a - b| over (1, S, N, 2) tracks."""
+    diff = (a - b).abs()
+    per_track = diff.amax(dim=(1, 3))[0]
+    return (float(diff.median()), float(diff.max()),
+            float((per_track <= 1e-2).float().mean()))
+
 
 def agree_phase(report: dict) -> None:
     import torch
@@ -409,10 +626,7 @@ def agree_phase(report: dict) -> None:
         fmaps = runner.fmaps(images)
         tracks, vis, score = runner.predict_tracks(images, fmaps, [0], [qp])
         out[dev] = tracks.float().cpu()
-    diff = (out["cuda"] - out["cpu"]).abs()  # (1, S, N, 2)
-    per_track = diff.amax(dim=(1, 3))[0]
-    frac = float((per_track <= 1e-2).float().mean())
-    med, mx = float(diff.median()), float(diff.max())
+    med, mx, frac = track_agreement(out["cuda"], out["cpu"])
     # f32 on both sides, summed in other orders. The tracks pass argmax
     # steps (matching init, NCC): where two cells of a smooth map nearly
     # tie, ~1e-6 differences may pick the other cell, and the flow
@@ -484,7 +698,8 @@ def camera_phase(report: dict, launches: dict) -> None:
     # (three kernels each), 8 cross-attention tails; the ranking launches
     # none
     want = {"fused_transformer_block": 0, "fused_ln_mlp": 8,
-            "fused_ln_attn": 16 * fm.ATTN_KERNELS}
+            "fused_ln_attn": 16 * fm.ATTN_KERNELS, "corr_sample_pallas": 0,
+            "corr_sample_pallas_smallc": 0}
     assert launches == want, f"launch counts {launches}, expected {want}"
 
     print(f"camera: query frames {qi}; stages "
@@ -572,6 +787,298 @@ def camera_agree_phase(report: dict) -> None:
         raise AssertionError("GPU and CPU cameras disagree")
 
 
+# ------------------------------------------------------------- phase 7
+
+def few_tracks_phase(report: dict, launches: dict) -> None:
+    """Few-track tracking with the runner's own query points; `launches`
+    gets the kernel launch counts of the run and the fine call."""
+    import torch
+
+    from vggsfm_tpu_torch.ops import fused_mlp as fm
+
+    S, size, K, shift = 8, 1024, 48, (3, 2)
+    images = make_frames(S, size, shift, "cuda", seed=6)
+    runner = make_runner("bf16", "cuda", seed=6, query_method="aliked",
+                         max_query_pts=K)
+    frames = list(range(S))
+    g = torch.Generator().manual_seed(7)
+    # the fine predictor's NHWC route: 31x31 32-channel maps, 16 tracks
+    fine_maps = torch.randn(1, S, 31, 31, 32, generator=g).cuda()
+    fine_qp = (torch.rand(1, 16, 2, generator=g) * 24 + 3).cuda()
+    fine_iters = 4
+
+    def drive():
+        fmaps = runner.fmaps(images)
+        out = runner.predict_tracks(images, fmaps, frames)
+        preds, _ = runner.tracker.fine_predictor(fine_qp, fine_maps,
+                                                 iters=fine_iters)
+        return out, preds[-1]
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        drive()  # first run: cuDNN algorithm search, the extractor's init
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+
+        runner.timings.clear()
+        torch.cuda.reset_peak_memory_stats()
+        fm.reset_launch_counts()
+        t0 = time.perf_counter()
+        (tracks, vis, score), fine_tracks = drive()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches.update(fm.launch_counts)
+    fm.reset_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    P = S * K
+    assert tracks.shape == (1, S, P, 2), tracks.shape
+    assert vis.shape == (1, S, P) and score.shape == (1, S, P)
+    assert fine_tracks.shape == (1, S, 16, 2), fine_tracks.shape
+    for name, t in (("tracks", tracks), ("vis", vis), ("score", score),
+                    ("fine tracks", fine_tracks)):
+        assert bool(torch.isfinite(t).all()), f"non-finite {name}"
+    qps, valids = runner.query_points(images, frames)
+    n_valid = int(torch.stack(valids).sum())
+    for q in frames:  # each query frame keeps its own points
+        assert torch.equal(tracks[0, q, q * K:(q + 1) * K], qps[q])
+    # 8 coarse calls of 48 tracks: each 6 iterations x 5 levels of the
+    # correlation kernel, 6 x (6 time + 6 virtual blocks) and 6 x 12
+    # cross-attention tails; 8 fine calls of 6 iterations x 4 time blocks
+    # (their correlation is the flat full-map form); then the direct fine
+    # call: 4 iterations x 3 levels and 4 x 4 time blocks
+    want = {"fused_transformer_block": S * (72 + 24) + fine_iters * 4,
+            "fused_ln_mlp": S * 72, "fused_ln_attn": 0,
+            "corr_sample_pallas": S * 6 * 5,
+            "corr_sample_pallas_smallc": fine_iters * 3}
+    assert launches == want, f"launch counts {launches}, expected {want}"
+    print(f"few tracks: tracks {tuple(tracks.shape)} from {S} query frames "
+          f"x {K} ALIKED points ({n_valid} valid) in {wall:.3f} s (first "
+          f"run {first_s:.3f} s); stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in runner.timings.items())
+          + f"; peak memory {peak_gb:.2f} GiB; launches {launches}",
+          flush=True)
+    report["few_tracks"] = {"wall_s": wall, "first_run_s": first_s,
+                            "stages_s": dict(runner.timings),
+                            "peak_mem_gib": peak_gb, "valid_points": n_valid}
+
+    # the tracking stage with its re-query of short frames, on the same
+    # frames: 8 x 48 points leave every frame short of the default
+    # min_vis_points (500), so `track_frames` re-queries frame 0 (48 more
+    # points, still short) and then every frame with 'sp+sift+aliked' at
+    # half the budget: 8 + 1 + 8 coarse calls
+    assert runner.cfg.comple_nonvis and runner.cfg.min_vis_points == 500
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        t3, v3, s3 = runner.track_frames(images, runner.fmaps(images), frames)
+    torch.cuda.synchronize()
+    requery_s = time.perf_counter() - t0
+    requery_launches = dict(fm.launch_counts)
+    fm.reset_launch_counts()
+    P3 = P + K + S * (K // 2)
+    assert t3.shape == (1, S, P3, 2), t3.shape
+    assert v3.shape == (1, S, P3) and s3.shape == (1, S, P3)
+    for name, t in (("tracks", t3), ("vis", v3), ("score", s3)):
+        assert bool(torch.isfinite(t).all()), f"non-finite re-query {name}"
+    for q in frames:  # the first round's tracks lead, pinned as before
+        assert torch.equal(t3[0, q, q * K:(q + 1) * K], qps[q])
+    assert requery_launches["corr_sample_pallas"] == (2 * S + 1) * 6 * 5, \
+        requery_launches
+    print(f"few tracks, track_frames with the re-query of short frames: "
+          f"{P} -> {P3} tracks in 3 rounds ({requery_s:.3f} s); launches "
+          f"{requery_launches}", flush=True)
+    report["few_tracks"]["track_frames_s"] = requery_s
+    report["few_tracks"]["track_frames_tracks"] = P3
+
+    report["few_tracks"]["profile"] = profile_slice(
+        drive, "few_tracks_profile.txt")
+
+    # the same path at a reduced size in f32 on the card and on the CPU,
+    # on the query points the card's runner extracted. Without the matching
+    # init (and so without its cycle visibility and the NCC polish): their
+    # argmax steps flip on near-ties between devices, which the agree phase
+    # above already meets with its gates; here every track starts on its
+    # query point, so what is compared is the iterations' correlation
+    # lookups (the kernel on the card, its plain version on the CPU) and
+    # the formers.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    S2, size2 = 4, 256
+    images2 = make_frames(S2, size2, (2, 1), "cpu", seed=8)
+    fine_maps2, fine_qp2 = fine_maps[:, :S2].cpu(), fine_qp.cpu()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r2 = make_runner("f32", dev, seed=8, query_method="aliked",
+                         max_query_pts=K, matching_init=False)
+        if dev == "cuda":
+            qps2, valids2 = r2.query_points(images2, [0, 2])
+            qps2 = [q.cpu() for q in qps2]
+            valids2 = [v.cpu() for v in valids2]
+        fm.reset_launch_counts()
+        t, _, _ = r2.predict_tracks(images2, r2.fmaps(images2), [0, 2],
+                                    query_points=qps2, query_valid=valids2)
+        with torch.inference_mode():
+            preds, _ = r2.tracker.fine_predictor(
+                fine_qp2.to(dev), fine_maps2.to(dev), iters=fine_iters)
+        out[dev] = (t.float().cpu(), preds[-1].float().cpu(),
+                    dict(fm.launch_counts))
+    fm.reset_launch_counts()
+    assert out["cuda"][2]["corr_sample_pallas"] == 2 * 6 * 5
+    assert out["cuda"][2]["corr_sample_pallas_smallc"] == fine_iters * 3
+    assert not any(out["cpu"][2].values())
+    med, mx, frac = track_agreement(out["cuda"][0], out["cpu"][0])
+    fmed, fmx, ffrac = track_agreement(out["cuda"][1], out["cpu"][1])
+    # the gates of the agree phase, for the reasons given there
+    ok = frac >= 0.95 and med <= 1e-3 and ffrac >= 0.95 and fmed <= 1e-3
+    print(f"few tracks agree: GPU vs CPU ({S2} frames, {size2} px, 2 query "
+          f"frames x {K} points, f32): tracks median {med:.2e} px, max "
+          f"{mx:.2e} px, within 1e-2 px {frac:.4f}; fine predictor on NHWC "
+          f"maps (16 tracks): median {fmed:.2e} px, max {fmx:.2e} px, "
+          f"within 1e-2 px {ffrac:.4f} {'ok' if ok else 'FAIL'}", flush=True)
+    report["few_tracks_agree"] = {
+        "median_px": med, "max_px": mx, "frac_1e-2": frac,
+        "fine_median_px": fmed, "fine_max_px": fmx, "fine_frac_1e-2": ffrac}
+    if not ok:
+        raise AssertionError("GPU and CPU few-track tracks disagree")
+    report["few_tracks_agree"]["matching_init"] = matching_init_agreement(
+        images2, K)
+
+
+def matching_init_agreement(images, K) -> dict:
+    """The few-track path with the matching init on (and with it the cycle
+    visibility and the NCC polish), f32 at the reduced size. Gated: the
+    kernel route on the card against the same run on the card with the
+    kernel's plain version in its place. Printed: either against the CPU,
+    and the matmul route (2K points per call, no correlation kernel)
+    against the CPU: the argmax steps of this mode flip on near-ties
+    between the devices whichever form computes the correlation."""
+    import torch
+
+    from vggsfm_tpu_torch.models import tracker as ttr
+    from vggsfm_tpu_torch.ops import corr as tc
+    from vggsfm_tpu_torch.ops import fused_mlp as fm
+
+    def run(dev, points, valid):
+        r = make_runner("f32", dev, seed=8, query_method="aliked",
+                        max_query_pts=K)
+        assert r.cfg.matching_init
+        fm.reset_launch_counts()
+        t, v, _ = r.predict_tracks(images, r.fmaps(images), [0, 2],
+                                   query_points=points, query_valid=valid)
+        n = fm.launch_counts["corr_sample_pallas"]
+        fm.reset_launch_counts()
+        return t.float().cpu(), v.float().cpu(), n
+
+    def outliers(a, b):
+        return (a - b).abs().amax(dim=(1, 3))[0] > 1e-2
+
+    picker = make_runner("f32", "cuda", seed=8, query_method="aliked")
+    pts = {}
+    for n in (K, 2 * K):
+        qps, valids = picker.query_points(images, [0, 2], max_query_pts=n)
+        pts[n] = ([q.cpu() for q in qps], [v.cpu() for v in valids])
+
+    gk = run("cuda", *pts[K])
+    kernel = ttr.corr_sample_kernel
+    ttr.corr_sample_kernel = tc.corr_sample_plain
+    try:
+        gp = run("cuda", *pts[K])
+    finally:
+        ttr.corr_sample_kernel = kernel
+    ck = run("cpu", *pts[K])
+    gm = run("cuda", *pts[2 * K])
+    cm = run("cpu", *pts[2 * K])
+    assert gk[2] == 2 * 6 * 5 and gp[2] == 0 and gm[2] == 0, (gk[2], gp[2],
+                                                              gm[2])
+
+    med, mx, frac = track_agreement(gk[0], gp[0])
+    vis_diff = float((gk[1] - gp[1]).abs().max())
+    out_k, out_p = outliers(gk[0], ck[0]), outliers(gp[0], ck[0])
+    _, mx_k, frac_k = track_agreement(gk[0], ck[0])
+    _, mx_p, frac_p = track_agreement(gp[0], ck[0])
+    _, mx_m, frac_m = track_agreement(gm[0], cm[0])
+    ok = frac >= 0.95 and med <= 1e-3 and vis_diff <= 1e-3
+    print(f"few tracks agree, matching init on (2 query frames x {K} "
+          f"points, f32): kernel route vs its plain version, both on the "
+          f"card: median {med:.2e} px, max {mx:.2e} px, within 1e-2 px "
+          f"{frac:.4f}, visibility max difference {vis_diff:.2e} "
+          f"{'ok' if ok else 'FAIL'}; GPU vs CPU: kernel route within 1e-2 "
+          f"px {frac_k:.4f} (max {mx_k:.2e} px, {int(out_k.sum())} tracks "
+          f"out), plain version on the card {frac_p:.4f} (max {mx_p:.2e} px, "
+          f"{int(out_p.sum())} out, {int((out_k & out_p).sum())} of them "
+          f"the same tracks), matmul route at {2 * K} points per call "
+          f"{frac_m:.4f} (max {mx_m:.2e} px)", flush=True)
+    if not ok:
+        raise AssertionError("with the matching init on, the correlation "
+                             "kernel and its plain version disagree on "
+                             "the card")
+    return {"kernel_vs_plain_on_card": {"median_px": med, "max_px": mx,
+                                        "frac_1e-2": frac,
+                                        "vis_max_diff": vis_diff},
+            "gpu_vs_cpu_frac_1e-2": {"kernel_route": frac_k,
+                                     "plain_on_card": frac_p,
+                                     "matmul_route": frac_m},
+            "gpu_vs_cpu_max_px": {"kernel_route": mx_k,
+                                  "plain_on_card": mx_p,
+                                  "matmul_route": mx_m},
+            "outlier_tracks": {"kernel_route": int(out_k.sum()),
+                               "plain_on_card": int(out_p.sum()),
+                               "shared": int((out_k & out_p).sum())}}
+
+
+# ------------------------------------------------------------- phase 8
+
+def query_points_phase(report: dict) -> None:
+    import torch
+
+    from vggsfm_tpu_torch.extractors.cnn import load_aliked
+    from vggsfm_tpu_torch.extractors.dispatch import get_query_points_batched
+
+    S, size, K, border = 8, 1024, 4096, 4
+    images = make_frames(S, size, (3, 2), "cuda", seed=9)[0]
+    rows = {}
+    for method in ("aliked", "sift+harris", "sp+sift+aliked"):
+        def extract():
+            gen = torch.Generator().manual_seed(0)
+            out = get_query_points_batched(images, gen, method, K)
+            torch.cuda.synchronize()
+            return out
+
+        extract()  # first run: cuDNN algorithm search, the models' init
+        t0 = time.perf_counter()
+        xy, valid = extract()
+        secs = time.perf_counter() - t0
+        assert xy.shape == (S, K, 2) and valid.shape == (S, K)
+        assert bool(torch.isfinite(xy).all())
+        inside = xy[valid]
+        assert inside.numel() > 0, f"{method}: no valid point"
+        assert bool(((inside >= border) & (inside < size - border)).all()), \
+            f"{method}: a valid point lies in the border"
+        # valid points come first in every frame
+        n = valid.sum(dim=1)
+        assert bool((valid == (torch.arange(K, device=valid.device)[None]
+                               < n[:, None])).all())
+        rows[method] = {"seconds": secs, "valid": int(valid.sum()),
+                        "of": S * K}
+        print(f"query points [{method}]: {S} frames x {K} points in "
+              f"{secs:.3f} s, {int(valid.sum())} of {S * K} valid, all "
+              f"inside the {border}-px border", flush=True)
+
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        score_gpu = load_aliked("cuda", torch.float32)(images[:1]).cpu()
+        score_cpu = load_aliked("cpu", torch.float32)(images[:1].cpu())
+    err = float((score_gpu - score_cpu).abs().max())
+    ok = err <= 1e-3
+    print(f"query points: ALIKED score map GPU vs CPU (1 frame, {size} px, "
+          f"f32, TF32 off): max error {err:.2e} (bound 1e-3) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    report["query_points"] = {**rows, "aliked_score_gpu_vs_cpu": err}
+    if not ok:
+        raise AssertionError("ALIKED score maps disagree between GPU and CPU")
+
+
 def main() -> int:
     try:
         import torch
@@ -603,6 +1110,14 @@ def main() -> int:
             "name": "fused_ln_attn", "route": "cuda",
             "source": "vggsfm_tpu_torch/csrc/fused_former.cu",
             "replaces": "vggsfm_tpu/ops/fused_mlp.py:203"},
+        "corr_sample_pallas": {
+            "name": "corr_sample_pallas", "route": "cuda",
+            "source": "vggsfm_tpu_torch/csrc/corr_sample.cu",
+            "replaces": "vggsfm_tpu/ops/corr_pallas.py:85"},
+        "corr_sample_pallas_smallc": {
+            "name": "corr_sample_pallas_smallc", "route": "cuda",
+            "source": "vggsfm_tpu_torch/csrc/corr_sample.cu",
+            "replaces": "vggsfm_tpu/ops/corr_pallas.py:255"},
     }
     try:
         from vggsfm_tpu_torch.ops import _build
@@ -621,13 +1136,19 @@ def main() -> int:
         return 1
 
     extra = {}
-    launches = {"tracker": {}, "camera": {}}  # by main-path slice
+    # by main-path slice
+    launches = {"tracker": {}, "camera": {}, "few_tracks": {}}
     for phase, fn in (
             ("kernels", lambda: kernel_phase(report)),
+            ("correlation kernels",
+             lambda: corr_kernel_phase(report, extra)),
             ("slice", lambda: slice_phase(extra, launches["tracker"])),
             ("agree", lambda: agree_phase(extra)),
             ("camera", lambda: camera_phase(extra, launches["camera"])),
-            ("camera agree", lambda: camera_agree_phase(extra))):
+            ("camera agree", lambda: camera_agree_phase(extra)),
+            ("few tracks",
+             lambda: few_tracks_phase(extra, launches["few_tracks"])),
+            ("query points", lambda: query_points_phase(extra))):
         t0 = time.perf_counter()
         try:
             fn()
@@ -643,7 +1164,7 @@ def main() -> int:
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms"):
+                    "library_ms", "device_ms"):
             entry.setdefault(key, None)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -1,4 +1,4 @@
-"""The fused former kernels on a CUDA GPU against their plain versions.
+"""The port's kernels on a CUDA GPU against their plain versions.
 
 Marked `cuda`: skipped without a GPU. Imports nothing of JAX, so it runs
 on a machine with only the port's dependencies (tests/conftest.py imports
@@ -9,12 +9,14 @@ JAX, hence --noconftest):
 Tolerances as chip_smoke.py states and justifies them, element by
 element: f32 1e-4 absolute (sums in another order); bf16 2 ulp of |ref|
 (the two sides' final roundings) plus 2^-5 (rounding flips of the
-intermediates).
+intermediates). The correlation kernel returns f32 sums of exact
+products, from f32 and from bf16 maps alike: 1e-4 absolute for both.
 """
 
 import pytest
 import torch
 
+from vggsfm_tpu_torch.ops import corr as tc
 from vggsfm_tpu_torch.ops import fused_mlp as fm
 
 pytestmark = pytest.mark.cuda
@@ -98,3 +100,64 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         fm.fused_ln_mlp(x, *ws)
     with pytest.raises(TypeError):
         fm.fused_ln_mlp(x.half(), *ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,W,C,N,r", [
+    (8, 128, 128, 128, 48, 4), (8, 8, 8, 128, 63, 4), (8, 31, 31, 32, 16, 3),
+    (3, 31, 31, 32, 1, 3), (2, 12, 14, 33, 7, 1), (2, 9, 40, 20, 5, 7),
+    (1, 16, 16, 256, 3, 2)])
+def test_corr_kernel_matches_plain(gen, dtype, S, H, W, C, N, r):
+    """Tracks inside, on and across every border and far outside; C = 33
+    takes the element-by-element loads. bf16 maps only below C = 128."""
+    if dtype == torch.bfloat16 and C >= tc.SMALL_C:
+        with pytest.raises(TypeError):
+            tc.corr_sample_kernel(
+                torch.zeros(S, H, W, C, dtype=dtype, device="cuda"),
+                torch.zeros(S, N, 2, device="cuda"),
+                torch.zeros(S, N, C, dtype=dtype, device="cuda"), r)
+        return
+    fmap = torch.randn(S, H, W, C, generator=gen).to("cuda", dtype)
+    coords = torch.rand(S, N, 2, generator=gen) * (W + 12) - 6
+    edge = torch.tensor([[3.0, 4.0], [-0.0, 0.0], [-1.0, H - 1.0],
+                         [W - 0.5, -0.25], [-300.0, 5.0], [7.0, 1e6]])
+    coords[0, :min(N, 6)] = edge[:N]
+    coords = coords.cuda()
+    feats = torch.randn(S, N, C, generator=gen).to("cuda", dtype)
+    name = ("corr_sample_pallas_smallc" if C < tc.SMALL_C
+            else "corr_sample_pallas")
+    n0 = dict(fm.launch_counts)
+    out = tc.corr_sample_kernel(fmap, coords, feats, r)
+    torch.cuda.synchronize()
+    assert fm.launch_counts[name] == n0[name] + 1
+    assert sum(fm.launch_counts.values()) == sum(n0.values()) + 1
+    assert out.dtype == torch.float32 and out.shape == (S, N, (2 * r + 1) ** 2)
+    ref = tc.corr_sample_plain(fmap, coords, feats, r)
+    assert float((out - ref).abs().max()) <= 1e-4
+    if N >= 5:
+        assert not out[0, 4].any()  # the window far outside: zeros
+
+
+def test_corr_sample_route_on_the_card(gen):
+    """models/tracker.corr_sample with fewer than 64 tracks: one launch per
+    pyramid level, bf16 maps cast up for C = 128 and kept for C = 32."""
+    from vggsfm_tpu_torch.models import tracker as ttr
+
+    for C, name in ((128, "corr_sample_pallas"),
+                    (32, "corr_sample_pallas_smallc")):
+        fmaps = torch.randn(1, 4, 32, 32, C, generator=gen).to(
+            "cuda", torch.bfloat16)
+        coords = (torch.rand(1, 4, 10, 2, generator=gen) * 40 - 4).cuda()
+        feats = torch.randn(1, 4, 10, C, generator=gen).to(
+            "cuda", torch.bfloat16)
+        pyr = ttr.build_corr_pyramid(fmaps, 3)
+        n0 = fm.launch_counts[name]
+        out = ttr.corr_sample(pyr, coords, feats, 3)
+        torch.cuda.synchronize()
+        assert fm.launch_counts[name] == n0 + 3
+        assert out.dtype == torch.bfloat16 and out.shape == (1, 4, 10, 3 * 49)
+        ref = ttr.corr_sample([p.cpu() for p in pyr], coords.cpu(),
+                              feats.cpu(), 3)
+        # both round the same f32 values (to ~1e-6) to bf16: one ulp of
+        # O(1-8) outputs where a value sits on a rounding boundary
+        assert float((out.float().cpu() - ref.float()).abs().max()) <= 0.0625

@@ -78,8 +78,9 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     assert torch.equal(tfm.fused_ln_attn(x, w_in, b_in, w_out, b_out, L, 4),
                        tfm.fused_ln_attn_ref(x, w_in, b_in, w_out, b_out, L,
                                              4))
-    assert tfm.launch_counts == {"fused_transformer_block": 0,
-                                 "fused_ln_mlp": 0, "fused_ln_attn": 0}
+    assert set(tfm.launch_counts) >= {"fused_transformer_block",
+                                      "fused_ln_mlp", "fused_ln_attn"}
+    assert not any(tfm.launch_counts.values())
 
 
 # ------------------------------------------------ the CUDA source on the CPU

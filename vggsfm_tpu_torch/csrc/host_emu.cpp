@@ -1,9 +1,10 @@
-// CPU build of the fused former kernels' device code (host_emu.h), with
-// the same C entry points as fused_former.cu on host pointers and without
-// the stream: lets the tests run the CUDA source's arithmetic, indexing and
+// CPU build of the kernels' device code (host_emu.h), with the same C entry
+// points as fused_former.cu and corr_sample.cu on host pointers and without
+// the stream: lets the tests run the CUDA sources' arithmetic, indexing and
 // barriers on a machine with no GPU.
 #include "host_emu.h"
 
+#include "corr_sample.cuh"
 #include "fused_former.cuh"
 
 namespace {
@@ -91,9 +92,45 @@ int run_block(const void* x, const void* w_in, const void* b_in,
   return 0;
 }
 
+template <typename T>
+int run_corr(const void* fmap, const void* coords, const void* feats,
+             void* out, int S, int N, int H, int W, int C, int radius) {
+  const bool vec = C % int(16 / sizeof(T)) == 0
+                   && reinterpret_cast<uintptr_t>(fmap) % 16 == 0;
+  const size_t smem =
+      vcorr::smem_bytes(C, radius, vec ? int(16 / sizeof(T)) : 1);
+  emu_launch(S * N, vcorr::kThreads, smem, [&](unsigned char* s) {
+    const T* fm = static_cast<const T*>(fmap);
+    const float* xy = static_cast<const float*>(coords);
+    const T* ft = static_cast<const T*>(feats);
+    float* o = static_cast<float*>(out);
+    if (vec)
+      vcorr::corr_body<T, true>(fm, xy, ft, o, N, H, W, C, radius, s);
+    else
+      vcorr::corr_body<T, false>(fm, xy, ft, o, N, H, W, C, radius, s);
+  });
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
+
+int vf_corr_sample(int dtype, const void* fmap, const void* coords,
+                   const void* feats, void* out, int S, int N, int H, int W,
+                   int C, int radius) {
+  const int bad = vcorr::check_shape(S, N, H, W, C, radius);
+  if (bad) return bad;
+  if (dtype == 0)
+    return run_corr<float>(fmap, coords, feats, out, S, N, H, W, C, radius);
+  if (dtype != 1) return -100;
+  return run_corr<__nv_bfloat16>(fmap, coords, feats, out, S, N, H, W, C,
+                                 radius);
+}
+
+size_t vf_corr_smem_bytes(int C, int radius, int tsize) {
+  return vcorr::smem_bytes(C, radius, C % (16 / tsize) == 0 ? 16 / tsize : 1);
+}
 
 int vf_fused_ln_mlp(int dtype, const void* x, const void* w1, const void* b1,
                     const void* w2, const void* b2, void* out, int R, int C,

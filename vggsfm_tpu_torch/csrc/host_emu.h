@@ -1,5 +1,6 @@
-// Host emulation of the small CUDA subset fused_former.cuh uses, so its
-// device code compiles with a plain C++20 compiler and runs on the CPU for
+// Host emulation of the small CUDA subset fused_former.cuh and
+// corr_sample.cuh use, so their device code compiles with a plain C++20
+// compiler and runs on the CPU for
 // testing: one std::thread per CUDA thread, a std::barrier per block for
 // __syncthreads, blocks one after another, bit-exact bfloat16 conversions
 // (round to nearest even), and the 16x16x16 nvcuda::wmma calls with every

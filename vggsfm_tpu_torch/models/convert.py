@@ -1,4 +1,4 @@
-"""JAX tracker and camera params -> the port's state_dicts.
+"""JAX tracker, camera and extractor params -> the port's state_dicts.
 
 `tracker_state_dict_from_jax` inverts vggsfm_tpu/models/convert.py's
 `convert_tracker` (its :81-153), `camera_state_dict_from_jax` its
@@ -15,6 +15,13 @@ The camera's adds LayerNorm ``scale`` -> ``weight``, the DINOv2 block names
 (``mlp_fc1`` -> ``mlp.fc1``, ``ls1_gamma`` -> ``ls1.gamma``,
 ``patch_embed`` -> ``patch_embed.proj``), and the ``mask_token`` the JAX
 module does not keep (zeros, never used).
+
+The extractors' (`aliked_state_dict_from_jax`, `sddh_state_dict_from_jax`,
+`superpoint_state_dict_from_jax`) give the official checkpoints' key names,
+so `convert_aliked_checkpoint`, `convert_sddh_checkpoint` and
+`convert_superpoint_checkpoint` of vggsfm_tpu/extractors map them back onto
+the same params; a folded `InferenceBatchNorm` (scale, bias) becomes a
+BatchNorm with running mean 0 and running variance 1 - eps.
 
 Pure numpy in, torch tensors out; no JAX import.
 """
@@ -172,4 +179,54 @@ def camera_state_dict_from_jax(params_np) -> dict:
         i += 1
     _mlp(sd, "pose_branch", p["pose_branch"])
     _dense(sd, "ffeat_updater.0", p["ffeat_updater"])
+    return sd
+
+
+def _batch_norm(sd, prefix, p, eps=1e-5):
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+    n = np.asarray(p["scale"]).shape[0]
+    sd[f"{prefix}.running_mean"] = torch.zeros(n)
+    sd[f"{prefix}.running_var"] = torch.ones(n) - eps
+
+
+def aliked_state_dict_from_jax(params_np) -> dict:
+    """JAX `ALIKED` params (a numpy pytree, with or without the outer
+    ``{"params": ...}``) -> the port's ALIKED state_dict, the official
+    ALIKED-n16 key names."""
+    p = params_np.get("params", params_np)
+    sd: dict = {}
+    for k in range(1, 5):
+        blk = p[f"block{k}"]
+        for name in ("conv1", "conv2"):
+            _conv(sd, f"block{k}.{name}", blk[name])
+        for name in ("bn1", "bn2"):
+            _batch_norm(sd, f"block{k}.{name}", blk[name])
+        if "downsample" in blk:
+            _conv(sd, f"block{k}.downsample", blk["downsample"])
+        _conv(sd, f"conv{k}", p[f"conv{k}"])
+        _conv(sd, f"score_head.{2 * k - 2}", p[f"score_head{k}"])
+    return sd
+
+
+def sddh_state_dict_from_jax(params_np, prefix: str = "desc_head.") -> dict:
+    """JAX `SDDH` params -> the official ALIKED checkpoint's ``desc_head``
+    entries (`prefix=""`: the port's SDDH state_dict)."""
+    p = params_np.get("params", params_np)
+    sd: dict = {}
+    _conv(sd, f"{prefix}offset_conv.0", p["offset_conv1"])
+    _conv(sd, f"{prefix}offset_conv.2", p["offset_conv2"])
+    for name in ("sf_conv", "convM"):
+        sd[f"{prefix}{name}.weight"] = _t(
+            np.transpose(p[name]["kernel"], (3, 2, 0, 1)))
+    return sd
+
+
+def superpoint_state_dict_from_jax(params_np) -> dict:
+    """JAX `SuperPoint` params -> the port's SuperPoint state_dict, the
+    public ``superpoint_v1.pth`` key names."""
+    p = params_np.get("params", params_np)
+    sd: dict = {}
+    for name, conv_p in p.items():
+        _conv(sd, name, conv_p)
     return sd

@@ -7,7 +7,8 @@ linear, so sampling the correlation surface equals combining the dots of
 the track feature with the (2r+2)^2 integer-grid neighborhood. Taps outside
 the map contribute 0 (grid_sample's zeros padding), including the half-in
 corner taps. Where the JAX package builds one-hot window matrices to avoid
-TPU scalar gathers, this port gathers by index.
+TPU scalar gathers, this port gathers by index. Calls with fewer than 64
+tracks go to the hand-written correlation kernel (ops/corr.py).
 """
 
 from __future__ import annotations
@@ -32,12 +33,12 @@ from vggsfm_tpu_torch.models.sampling import (
     sample_features4d,
     subpixel_parabola,
 )
-
-SMALL_N_CORR = ("the correlation kernels corr_sample_pallas / "
-                "corr_sample_pallas_smallc are not ported yet (ROADMAP.md, "
-                "queue 2, items 4-5): coarse tracker calls with fewer than "
-                "64 tracks run on the CPU only")
-
+from vggsfm_tpu_torch.ops.corr import (
+    SMALL_C,
+    corr_sample_kernel,
+    window_from_dots,
+    window_index,
+)
 
 # ------------------------------------------------------------ pyramids
 
@@ -61,7 +62,7 @@ def build_corr_pyramid(fmaps: torch.Tensor, num_levels: int) -> list:
         if x.shape[-2] < 2 or x.shape[-1] < 2:
             break
         x = _avg_pool2(x)
-        pyramid.append(x.permute(0, 1, 3, 4, 2))
+        pyramid.append(x.permute(0, 1, 3, 4, 2).contiguous())
     return pyramid
 
 
@@ -84,33 +85,6 @@ def build_corr_pyramid_flat(x: torch.Tensor, hw: tuple, num_levels: int):
 
 # ------------------------------------------------------ window sampling
 
-def _window_from_dots(ci: torch.Tensor, frac: torch.Tensor,
-                      r: int) -> torch.Tensor:
-    """Bilinear (2r+1)^2 taps from (..., 2r+2, 2r+2) integer-grid values;
-    frac (..., 2) the sub-cell offset."""
-    W1 = 2 * r + 1
-    fx = frac[..., 0, None, None]
-    fy = frac[..., 1, None, None]
-    corr = ((1 - fy) * (1 - fx) * ci[..., :W1, :W1]
-            + (1 - fy) * fx * ci[..., :W1, 1:]
-            + fy * (1 - fx) * ci[..., 1:, :W1]
-            + fy * fx * ci[..., 1:, 1:])
-    return corr.reshape(*corr.shape[:-2], W1 * W1)
-
-
-def _window_index(centers: torch.Tensor, r: int, H: int, W: int):
-    """Flat indices (..., (2r+2)^2) of the integer window whose top-left
-    tap is floor(center) - r, the in-map mask, and the sub-cell offset."""
-    base = torch.floor(centers)
-    offs = torch.arange(-r, r + 2, device=centers.device)
-    ix = base[..., 0].long()[..., None, None] + offs[None, :]
-    iy = base[..., 1].long()[..., None, None] + offs[:, None]
-    ok = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
-    flat = iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)
-    shape = centers.shape[:-1] + (-1,)
-    return flat.reshape(shape), ok.reshape(shape), centers - base
-
-
 def _window_from_cmap(cmap: torch.Tensor, centers: torch.Tensor, r: int,
                       hw: tuple, dt) -> torch.Tensor:
     """Bilinear (2r+1)^2 windows of scalar correlation maps.
@@ -120,10 +94,10 @@ def _window_from_cmap(cmap: torch.Tensor, centers: torch.Tensor, r: int,
     """
     H, W = hw
     w = 2 * r + 2
-    idx, ok, frac = _window_index(centers, r, H, W)
+    idx, ok, frac = window_index(centers, r, H, W)
     ci = torch.gather(cmap.to(dt), -1, idx) * ok.to(dt)
     ci = ci.reshape(*ci.shape[:-1], w, w)
-    return _window_from_dots(ci, frac.to(dt), r)
+    return window_from_dots(ci, frac.to(dt), r)
 
 
 def corr_sample(pyramid: list, coords: torch.Tensor,
@@ -131,26 +105,31 @@ def corr_sample(pyramid: list, coords: torch.Tensor,
     """Correlation features (B, S, N, L*(2r+1)^2) of an NHWC pyramid.
 
     pyramid: list of (B, S, Hi, Wi, C); coords (B, S, N, 2) at level-0
-    scale; track_feats (B, S, N, C). With N >= 64 tracks: the full
-    correlation map per level as one matrix product, then the windows
-    (chunked over tracks so the map stays under ~1 GB). With fewer tracks
-    the JAX package runs its correlation kernels on the TPU, which this
-    port has not yet brought to the GPU: there it raises; on the CPU it
-    gathers the (2r+2)^2 feature window per track.
+    scale; track_feats (B, S, N, C). Routed per level as the JAX function:
+      * N >= 64 tracks: the full correlation map as one matrix product,
+        then the windows (chunked over tracks so the map stays under
+        ~1 GB);
+      * N == 1, C < 128 and a map of at most 4096 cells (one track per
+        fine patch): the full map as a multiply-reduce, then the window;
+      * every other call: the correlation kernel (ops/corr.py), once per
+        level. With C >= 128 maps and features go in as float32, the
+        `corr_sample_pallas` contract; with C < 128 the map keeps its
+        dtype and the features take it, the `corr_sample_pallas_smallc`
+        contract. Either result is cast to the features' dtype. A caller
+        that iterates hands in the pyramid already in the kernel's dtype,
+        so the cast here copies nothing.
     """
     B, S, N, _ = coords.shape
     C = track_feats.shape[-1]
     dt = track_feats.dtype
     r = radius
-    w = 2 * r + 2
-    if N < 64 and track_feats.device.type != "cpu":
-        raise NotImplementedError(SMALL_N_CORR)
+    scale = torch.tensor(float(C), dtype=dt).sqrt()
     out = []
     for i, fmap in enumerate(pyramid):
         _, _, H, W, _ = fmap.shape
         centers = coords / (2.0 ** i)
-        fm = fmap.reshape(B, S, H * W, C).to(dt)
         if N >= 64:
+            fm = fmap.reshape(B, S, H * W, C).to(dt)
             max_chunk = max(64, (1 << 30) // max(
                 1, B * S * H * W * track_feats.element_size()))
             chunks = []
@@ -159,16 +138,20 @@ def corr_sample(pyramid: list, coords: torch.Tensor,
                 cmap = torch.matmul(tf_c, fm.transpose(-1, -2))
                 chunks.append(_window_from_cmap(
                     cmap, centers[:, :, n0: n0 + max_chunk], r, (H, W), dt))
-            corr = torch.cat(chunks, dim=2)
+            corr = torch.cat(chunks, dim=2) / scale
+        elif N == 1 and C < SMALL_C and H * W <= 4096:
+            # products in the operands' dtype, summed in f32
+            cmap = (fmap.reshape(B, S, H * W, C) * track_feats).float().sum(-1)
+            corr = _window_from_cmap(cmap[:, :, None], centers, r, (H, W),
+                                     dt) / scale
         else:
-            idx, ok, frac = _window_index(centers, r, H, W)
-            nb = torch.gather(
-                fm, 2, idx.reshape(B, S, N * w * w, 1).expand(-1, -1, -1, C))
-            nb = nb.reshape(B, S, N, w * w, C) * ok[..., None].to(dt)
-            ci = torch.einsum("bsnkc,bsnc->bsnk", nb, track_feats)
-            corr = _window_from_dots(ci.reshape(B, S, N, w, w),
-                                     frac.to(dt), r)
-        out.append(corr / torch.tensor(float(C), dtype=dt).sqrt())
+            kdt = torch.float32 if C >= SMALL_C else fmap.dtype
+            corr = corr_sample_kernel(  # scales by 1/sqrt(C) itself
+                fmap.reshape(B * S, H, W, C).to(kdt).contiguous(),
+                centers.reshape(B * S, N, 2).float().contiguous(),
+                track_feats.reshape(B * S, N, C).to(kdt).contiguous(),
+                r).reshape(B, S, N, -1).to(dt)
+        out.append(corr)
     return torch.cat(out, dim=-1)
 
 
@@ -477,6 +460,10 @@ class BaseTrackerPredictor(nn.Module):
                 fmaps, (HH, WW), self.corr_levels)
         else:
             pyramid = build_corr_pyramid(fmaps, self.corr_levels)
+            if N < 64 and C >= SMALL_C:
+                # the correlation kernel reads float32 maps at this width
+                # (`corr_sample`): cast the pyramid once, not per iteration
+                pyramid = [lvl.float() for lvl in pyramid]
 
         # one sincos grid for every batch element, sampled with the
         # flattened (1, B*N, 2) query set

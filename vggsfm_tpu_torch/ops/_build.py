@@ -27,10 +27,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-CUDA_SOURCES = ("fused_former.cu",)
-HEADERS = ("fused_former.cuh",)
+CUDA_SOURCES = ("fused_former.cu", "corr_sample.cu")
+HEADERS = ("fused_former.cuh", "corr_sample.cuh")
 EMU_SOURCES = ("host_emu.cpp",)
-EMU_HEADERS = ("host_emu.h", "fused_former.cuh")
+EMU_HEADERS = ("host_emu.h", "fused_former.cuh", "corr_sample.cuh")
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -51,10 +51,11 @@ def find_nvcc() -> str | None:
 
 def nvcc_command(out_path: str, nvcc: str = "nvcc") -> list:
     """The nvcc command line that builds the kernels into `out_path`.
-    ``-Xptxas -v`` makes ptxas report registers, shared memory and spills
-    per kernel (kept in `build_info`)."""
-    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out_path,
+    ``--threads 0`` compiles the sources side by side; ``-Xptxas -v``
+    makes ptxas report registers, shared memory and spills per kernel
+    (kept in `build_info`)."""
+    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "--threads",
+            "0", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out_path,
             *[os.path.join(CSRC, s) for s in CUDA_SOURCES]]
 
 
@@ -117,6 +118,10 @@ def _declare(lib, with_stream: bool):
     lib.vf_attn_scratch_rows.restype = ctypes.c_long
     lib.vf_attn_smem_bytes.argtypes = [ci] * 4
     lib.vf_attn_smem_bytes.restype = ctypes.c_size_t
+    lib.vf_corr_sample.argtypes = [ci] + [vp] * 4 + [ci] * 6 + tail
+    lib.vf_corr_sample.restype = ci
+    lib.vf_corr_smem_bytes.argtypes = [ci] * 3
+    lib.vf_corr_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -128,8 +133,8 @@ def load_library():
             if nvcc is None:
                 raise RuntimeError(
                     "nvcc not found (looked in $CUDA_HOME/bin, "
-                    "/usr/local/cuda/bin and PATH): the fused former "
-                    "kernels cannot be built")
+                    "/usr/local/cuda/bin and PATH): the port's kernels "
+                    "cannot be built")
             path = _build("vf_former", CUDA_SOURCES + HEADERS,
                           lambda out: nvcc_command(out, nvcc))
             _libs["cuda"] = _declare(ctypes.CDLL(path), with_stream=True)

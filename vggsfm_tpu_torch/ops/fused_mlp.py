@@ -10,7 +10,8 @@ Counterparts of vggsfm_tpu/ops/fused_mlp.py (`fused_transformer_block`,
     raises, if the kernel does not take the inputs;
   * a plain PyTorch version (``*_ref``) of the same function with the same
     rounding points, which the wrapper takes only for CPU tensors;
-  * a launch counter (`launch_counts`), bumped once per kernel launch:
+  * a launch counter (`launch_counts`, shared with ops/corr.py), bumped
+    once per kernel launch:
     one per call of the first two ops, ATTN_KERNELS per `fused_ln_attn`.
 
 Numerics (as the TPU kernels): LN without affine, eps 1e-6, statistics in
@@ -25,7 +26,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from vggsfm_tpu_torch.ops import _build
+# launch_counts, reset_launch_counts: also read through this module
+from vggsfm_tpu_torch.ops import _build, launch_counts, reset_launch_counts  # noqa: F401
 
 # mirrors the kernels' limits (csrc/fused_former.cuh check_*_shape)
 MAX_C = 384          # whole-block kernel (64-row register tile)
@@ -34,18 +36,11 @@ MAX_L = 64
 MAX_HEAD_DIM = 64    # whole-block kernel
 MAX_ATTN_HEAD_DIM = 128
 
-launch_counts = {"fused_transformer_block": 0, "fused_ln_mlp": 0,
-                 "fused_ln_attn": 0}
 # kernels one fused_ln_attn call launches: LayerNorm, per-head attention,
 # out-projection
 ATTN_KERNELS = 3
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def block_kernel_takes(C: int, seq_len: int, num_heads: int) -> bool:

@@ -1,12 +1,13 @@
 """VGGSfMRunner, the first stages of the sparse pipeline: query-frame
-ranking, camera initialization, and tracking (feature maps -> coarse
-tracks -> fine tracks, chunked over query points). Counterpart of those
+ranking, camera initialization, query-point extraction and tracking
+(feature maps -> coarse tracks -> fine tracks, chunked over query points),
+with the re-query of frames that see too few points. Counterpart of those
 parts of vggsfm_tpu/runner.py (`select_query_frames`, `sparse_reconstruct`'s
-step 2, `_fmaps`, `_coarse_track`, `_fine_track`, `predict_tracks`;
-reference runners/runner.py:344-354, 1068-1198).
+step 2, `_fmaps`, `_query_points`, `_coarse_track`, `_fine_track`,
+`predict_tracks`, `_comple_nonvis`, the tracking stage `track_frames`; reference runners/runner.py:344-354,
+1068-1282).
 
-Query points come from the caller: the extractors are a later slice of the
-port. Runs on the GPU unless the caller passes ``device="cpu"``.
+Runs on the GPU unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ import time
 import numpy as np
 import torch
 
+from vggsfm_tpu_torch.extractors.dispatch import (
+    get_query_points,
+    get_query_points_batched,
+)
 from vggsfm_tpu_torch.geometry.cameras import pose_encoding_to_extri_intri
 from vggsfm_tpu_torch.models.camera import CameraPredictor, init_camera_
 from vggsfm_tpu_torch.models.refine import refine_track
@@ -28,25 +33,20 @@ from vggsfm_tpu_torch.utils.camera_avg import (
     rank_by_interval,
     rank_by_midpoint,
 )
-
-
-def resolve_device(device="cuda") -> torch.device:
-    """The device an entry point runs on; raises when a GPU is asked for
-    and none is present (no silent fall back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "vggsfm_tpu_torch runs on a CUDA GPU and none is available; "
-            "pass device='cpu' to run on the CPU")
-    return dev
+from vggsfm_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
 class RunnerConfig:
-    """The query-ranking, camera and tracking fields of
+    """The query-ranking, camera, query-point and tracking fields of
     vggsfm_tpu.runner.RunnerConfig."""
 
     query_frame_num: int = 3
+    max_query_pts: int = 4096
+    # 'auto': aliked with a trained checkpoint (VGGSFM_TPU_ALIKED_CKPT),
+    # else sift+harris; methods combine with '+'
+    # (extractors/dispatch.py)
+    query_method: str = "auto"
     # ensemble the camera prediction over the query orderings
     avg_pose: bool = True
     # midpoint query ranking instead of DINO-similarity FPS
@@ -58,6 +58,10 @@ class RunnerConfig:
     coarse_iters: int = 6
     max_points_num: int = 163840  # track-frames per coarse tracker call
     max_fine_points_num: int = 32768  # track-frames per fine call
+    # `track_frames` re-queries the frames that see fewer than
+    # min_vis_points points (`_comple_nonvis`)
+    comple_nonvis: bool = True
+    min_vis_points: int = 500
     seed: int = 0
     # correlation-argmax init, cycle-consistency visibility and NCC polish:
     # the weights-free operating mode (the latter two only without loaded
@@ -200,14 +204,53 @@ class VGGSfMRunner:
             return self.tracker.process_images_to_fmaps(images)
 
     @torch.inference_mode()
-    def predict_tracks(self, images, fmaps, query_indices, query_points,
-                       query_valid=None):
+    def query_points(self, images, query_indices, masks=None,
+                     query_method=None, max_query_pts=None):
+        """Query keypoints of each query frame of (B, S, H, W, 3) images:
+        (list of (max_query_pts, 2) xy, list of (max_query_pts,) valid).
+
+        Without segmentation masks all query frames go through each
+        detector in one batch; with `masks` (S, H, W), pixels above 0.5
+        are invalid and the frames are extracted one by one. Each frame
+        subsamples with its own permutation, drawn in frame order from a
+        generator seeded with `cfg.seed`.
+        """
+        cfg = self.cfg
+        images = self._to_device(images)
+        method = query_method or cfg.query_method
+        max_pts = max_query_pts or cfg.max_query_pts
+        gen = torch.Generator().manual_seed(cfg.seed)
+        with self._stage("query_points"):
+            if masks is None and len(query_indices) > 1:
+                idx = torch.as_tensor(np.asarray(query_indices),
+                                      device=self.device)
+                qp, valid = get_query_points_batched(images[0, idx], gen,
+                                                     method, max_pts)
+                return list(qp), list(valid)
+            qps, valids = [], []
+            for qframe in query_indices:
+                seg = None
+                if masks is not None:
+                    seg = self._to_device(masks[qframe]) > 0.5
+                qp, valid = get_query_points(images[0, qframe], gen, method,
+                                             max_pts, seg_invalid_mask=seg)
+                qps.append(qp)
+                valids.append(valid)
+            return qps, valids
+
+    @torch.inference_mode()
+    def predict_tracks(self, images, fmaps, query_indices,
+                       query_points=None, query_valid=None, masks=None,
+                       query_method=None, max_query_pts=None):
         """Track from each query frame; concatenate over query frames.
 
         images (B, S, H, W, 3) in [0, 1]; fmaps from `fmaps(images)`;
-        query_indices: the query frame of each entry of query_points,
-        a list of (N, 2) xy pixel arrays; query_valid: optional list of
-        (N,) masks (invalid points get visibility 0).
+        query_indices: the query frames. The runner extracts each frame's
+        query points (`query_points`, with `masks`, and `query_method` /
+        `max_query_pts` overriding the config), unless the caller gives
+        them: query_points, a list of (N, 2) xy pixel arrays, one per
+        query frame, and optionally query_valid, a list of (N,) masks.
+        Invalid points get visibility 0.
 
         Frames are reordered so each query frame comes first, points are
         chunked per coarse call (`max_points_num // S`) and per fine call
@@ -218,6 +261,9 @@ class VGGSfMRunner:
         cfg = self.cfg
         images = self._to_device(images)
         B, S = images.shape[:2]
+        if query_points is None:
+            query_points, query_valid = self.query_points(
+                images, query_indices, masks, query_method, max_query_pts)
         orders = []
         for qframe in query_indices:
             order = np.arange(S)
@@ -258,11 +304,65 @@ class VGGSfMRunner:
             vis = torch.cat(viss, dim=2)[:, inv]
             score = torch.cat(scores, dim=2)[:, inv]
             if query_valid is not None:
-                valid = torch.as_tensor(np.asarray(query_valid[qi]),
-                                        device=self.device)
-                vis = vis * valid[None, None, :].to(vis.dtype)
+                valid = query_valid[qi]
+                if not torch.is_tensor(valid):
+                    valid = torch.as_tensor(np.asarray(valid))
+                vis = vis * valid.to(self.device, vis.dtype)[None, None, :]
             all_track.append(track)
             all_vis.append(vis)
             all_score.append(score)
         return (torch.cat(all_track, dim=2), torch.cat(all_vis, dim=2),
                 torch.cat(all_score, dim=2))
+
+    def track_frames(self, images, fmaps, query_indices, masks=None):
+        """The tracking stage of the JAX runner's `sparse_reconstruct`:
+        `predict_tracks` from the query frames with the runner's own query
+        points, then, with `cfg.comple_nonvis`, the re-query of the frames
+        that see too few of them. Same arguments and returns as
+        `predict_tracks`."""
+        track, vis, score = self.predict_tracks(images, fmaps, query_indices,
+                                                masks=masks)
+        if self.cfg.comple_nonvis:
+            track, vis, score = self._comple_nonvis(images, fmaps, track,
+                                                    vis, score, masks)
+        return track, vis, score
+
+    def _comple_nonvis(self, images, fmaps, track, vis, score, masks=None):
+        """Re-query the frames with too few visible points, then escalate
+        (reference `comple_nonvis_frames`, runners/runner.py:1201-1282):
+        query from the first frame that sees fewer than `min_vis_points`
+        points above visibility 0.05; when the same frame stays short, one
+        final trial re-queries all remaining short frames with the
+        combined extractors at half the point budget, then stops. The
+        count is read on the host, one device-to-host copy per round."""
+        cfg = self.cfg
+
+        def bad_frames(v):
+            count = (v[0] > 0.05).sum(dim=-1).cpu().numpy()
+            return [int(i) for i in np.nonzero(count < cfg.min_vis_points)[0]]
+
+        bad = bad_frames(vis)
+        last_query = -1
+        final_trial = False
+        while bad:
+            if bad[0] == last_query:
+                final_trial = True
+                method = "sp+sift+aliked"
+                max_pts = cfg.max_query_pts // 2
+                query_list = bad
+            else:
+                method = cfg.query_method
+                max_pts = cfg.max_query_pts
+                query_list = [bad[0]]
+            last_query = bad[0]
+
+            t2, v2, s2 = self.predict_tracks(
+                images, fmaps, query_list, masks=masks, query_method=method,
+                max_query_pts=max_pts)
+            track = torch.cat([track, t2], dim=2)
+            vis = torch.cat([vis, v2], dim=2)
+            score = torch.cat([score, s2], dim=2)
+            bad = bad_frames(vis)
+            if final_trial:
+                break
+        return track, vis, score
