@@ -7,12 +7,20 @@ Phases, each of which must pass (the script exits non-zero otherwise and
 prints no result line):
 
 1. card: the GPU's name and power limit (nvidia-smi), then the build of
-   the kernels from vggsfm_tpu_torch/csrc (nvcc, sm_90a) and its time;
+   the kernels from vggsfm_tpu_torch/csrc (nvcc, sm_90a), its time, each
+   kernel's registers and spills (ptxas), and the ring path's shared
+   memory per block;
 2. kernels: each hand-written kernel on the card at the main path's
-   shapes (the tracker's, the camera trunk's and cross-attention tails',
-   and the attention probe's), in bf16 and f32, against its plain PyTorch
-   version on the same inputs (each element within the stated bound:
-   `err_over_bound`), with both times and the bound; then the correlation
+   shapes (the tracker's, the few-track path's 896 rows, the camera
+   trunk's and cross-attention tails', and the attention probe's), in
+   bf16 and f32, against its plain PyTorch version on the same inputs
+   (each element within the stated bound: `err_over_bound`), with both
+   times and the bound; for the block and ln_mlp kernels also the
+   achieved TFLOP/s, the share of the bound, the weight bytes the blocks
+   read from L2, and in bf16 `composed_ms`: the same function from the
+   fewest stock calls (LayerNorm, Linear, SDPA, GELU), a yardstick the
+   port never calls (`library_ms` stays null: no single call computes
+   the function); then the correlation
    kernel at the few-track shapes (coarse level 0 and the coarsest level
    with 48 and 63 tracks, the fine 31x31 32-channel maps with 16, 2 and 1
    tracks in bf16 and f32, tracks inside, on and across every border and
@@ -124,6 +132,35 @@ def card_line() -> str:
         else f"nvidia-smi failed: {out.stderr.strip()}"
 
 
+def ptxas_report(log: str):
+    """(kernel, 'N registers, S bytes spill stores, L bytes spill loads')
+    for each entry function in nvcc's -Xptxas -v output, names demangled
+    by c++filt where the host has it."""
+    import re
+
+    out, name, props = [], None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, props = m.group(1), {}
+            out.append((name, props))
+        elif name and "spill" in line:
+            props["spill"] = line.strip()
+        elif name and "Used" in line:
+            props["used"] = re.sub(r".*Used", "Used", line).strip()
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in out),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) != len(out):
+        names = [n for n, _ in out]
+    return [(re.sub(r"\(.*", "", pretty),
+             f"{p.get('used', '?')}; {p.get('spill', '?')}")
+            for pretty, (_, p) in zip(names, out)]
+
+
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
 
@@ -185,6 +222,40 @@ def attn_work(R, L, C, tsize):
                                                   + 4 * C)
 
 
+def weight_traffic(kind, R, L, C, M, tsize):
+    """(blocks, bytes) of the weight matrices the blocks of one launch read
+    from L2: every block reads every weight once (biases left out)."""
+    if kind == "block":
+        rows = (64 // L) * L
+        return -(-R // rows), tsize * (4 * C * C + 2 * C * M)
+    rows = 64 if C <= 384 else 32
+    return -(-R // rows), tsize * 2 * C * M
+
+
+def composed_mlp(x, w1, b1, w2, b2):
+    """x + fc2(gelu(fc1(LN(x)))) from stock calls: a yardstick, printed
+    only; the port never calls it."""
+    import torch.nn.functional as F
+
+    h = F.gelu(F.linear(F.layer_norm(x, (x.shape[1],), eps=1e-6), w1, b1))
+    return x + F.linear(h, w2, b2)
+
+
+def composed_block(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, L, H):
+    """The block from stock calls (LayerNorm, Linear, SDPA over
+    (R / L, H, L, D), Linear, then `composed_mlp`), with the normalized
+    residual: a yardstick, printed only; the port never calls it."""
+    import torch.nn.functional as F
+
+    R, C = x.shape
+    xn = F.layer_norm(x, (C,), eps=1e-6)
+    q, k, v = F.linear(xn, w_in, b_in).view(R // L, L, 3, H, C // H).permute(
+        2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v)
+    x1 = xn + F.linear(o.transpose(1, 2).reshape(R, C), w_out, b_out)
+    return composed_mlp(x1, w1, b1, w2, b2)
+
+
 def bound_ms(flops, nbytes, dtype_name):
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_mem = nbytes / HBM_BYTES_PER_S
@@ -192,7 +263,7 @@ def bound_ms(flops, nbytes, dtype_name):
                                      else "bytes")
 
 
-def kernel_phase(report: dict) -> None:
+def kernel_phase(report: dict, extra: dict) -> None:
     import torch
 
     from vggsfm_tpu_torch.ops import fused_mlp as fm
@@ -209,8 +280,10 @@ def kernel_phase(report: dict) -> None:
         ("virtual-track block", "block", 512, 64, 384, 8),
         ("fine time block", "block", 32768, 8, 256, 8),
         ("time block, 9 frames", "block", 9 * 4160, 9, 384, 8),
+        ("few-track time block", "block", 896, 8, 384, 8),
         ("cross-attn tail, virtual2point", "mlp", 512, 0, 384, 0),
         ("cross-attn tail, point2virtual", "mlp", 32768, 0, 384, 0),
+        ("few-track cross-attn tail", "mlp", 896, 0, 384, 0),
         ("camera cross-attn tail", "mlp", 8 * 7 * 577, 0, 768, 0),
         ("camera trunk", "attn", 64, 8, 768, 8),
         ("camera trunk, R=4096", "attn", 8 * 512, 8, 768, 8),
@@ -222,6 +295,7 @@ def kernel_phase(report: dict) -> None:
                  "fused_ln_mlp": ("cross-attn tail, point2virtual",
                                   "bfloat16"),
                  "fused_ln_attn": ("camera trunk", "float32")}
+    rows = extra.setdefault("block_mlp_cases", [])
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         tsize = torch.tensor([], dtype=dtype).element_size()
@@ -239,6 +313,9 @@ def kernel_phase(report: dict) -> None:
                 def plain():
                     return fm.fused_transformer_block_ref(x, *ws, L, H)
 
+                def composed():
+                    return composed_block(x, *ws, L, H)
+
                 flops, nbytes = block_work(R, L, C, M, tsize)
                 name = "fused_transformer_block"
             elif kind == "attn":
@@ -251,6 +328,7 @@ def kernel_phase(report: dict) -> None:
                 def plain():
                     return fm.fused_ln_attn_ref(x, *ws, L, H)
 
+                composed = None
                 flops, nbytes = attn_work(R, L, C, tsize)
                 name = "fused_ln_attn"
             else:
@@ -262,6 +340,9 @@ def kernel_phase(report: dict) -> None:
 
                 def plain():
                     return fm.fused_ln_mlp_ref(x, *ws)
+
+                def composed():
+                    return composed_mlp(x, *ws)
 
                 flops, nbytes = mlp_work(R, C, M, tsize)
                 name = "fused_ln_mlp"
@@ -275,11 +356,32 @@ def kernel_phase(report: dict) -> None:
             plain_ms = cuda_time_ms(plain, iters)
             bms, by = bound_ms(flops, nbytes, dn)
             ok = finite and frac <= 1.0
-            print(f"kernel {name} [{label}] R={R} L={L} C={C} H={H} {dn}: "
-                  f"max_abs_err={err:.3e} (small-output {err_small:.3e}; "
-                  f"{frac:.3f} of the bound) "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} "
-                  f"({by}) {'ok' if ok else 'FAIL'}", flush=True)
+            line = (f"kernel {name} [{label}] R={R} L={L} C={C} H={H} {dn}: "
+                    f"max_abs_err={err:.3e} (small-output {err_small:.3e}; "
+                    f"{frac:.3f} of the bound) "
+                    f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} "
+                    f"({by})")
+            comp_ms = None
+            if composed is not None:
+                # achieved rate, share of the bound, the weights the blocks
+                # read from L2, and the stock-call yardstick (bf16 only)
+                blocks, wbytes = weight_traffic(kind, R, L, C, M, tsize)
+                line += (f" {flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.1%} of "
+                         f"the bound; L2 weight traffic {blocks} blocks x "
+                         f"{wbytes} B = {blocks * wbytes / 1e9:.3f} GB")
+                if dtype == torch.bfloat16:
+                    comp_ms = cuda_time_ms(composed, iters)
+                    comp_err = float((composed().float() - ref.float()).abs()
+                                     .max())
+                    line += (f"; composed_ms={comp_ms:.4f} (stock bf16 calls, "
+                             f"max |composed - plain| {comp_err:.3e})")
+                rows.append({"name": name, "case": label, "dtype": dn,
+                             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                             "tflops": flops / ms / 1e9,
+                             "l2_weight_bytes": blocks * wbytes,
+                             "composed_ms": comp_ms, "max_abs_err": err,
+                             "err_over_bound": frac})
+            print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"{name} [{label}] {dn}: err {err}, "
                                      f"{frac} of the bound, finite {finite}")
@@ -287,7 +389,7 @@ def kernel_phase(report: dict) -> None:
                 report[name].update(
                     max_abs_err=err, err_over_bound=frac, ms=ms,
                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=None)
+                    library_ms=None, composed_ms=comp_ms)
             del x, ws, out, ref
 
 
@@ -1127,9 +1229,14 @@ def main() -> int:
         info = _build.build_info["vf_former"]
         print(f"build: {time.perf_counter() - t0:.1f} s "
               f"(nvcc {info['seconds']:.1f} s)", flush=True)
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        for kname, props in ptxas_report(info["log"]):
+            print(f"  ptxas: {kname}: {props}")
+        lib = _build.load_library()
+        print(f"  dynamic shared memory per block: block kernel bf16 C=384 "
+              f"H=8 L=8 {lib.vf_block_smem_bytes(384, 8, 8, 1536, 2)} B, "
+              f"L=64 {lib.vf_block_smem_bytes(384, 8, 64, 1536, 2)} B; "
+              f"ln_mlp bf16 C=384 {lib.vf_ln_mlp_smem_bytes(384, 1536, 2)} "
+              f"B (of 232448)", flush=True)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: kernel build FAILED", flush=True)
@@ -1139,7 +1246,7 @@ def main() -> int:
     # by main-path slice
     launches = {"tracker": {}, "camera": {}, "few_tracks": {}}
     for phase, fn in (
-            ("kernels", lambda: kernel_phase(report)),
+            ("kernels", lambda: kernel_phase(report, extra)),
             ("correlation kernels",
              lambda: corr_kernel_phase(report, extra)),
             ("slice", lambda: slice_phase(extra, launches["tracker"])),
@@ -1164,7 +1271,7 @@ def main() -> int:
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "device_ms"):
+                    "library_ms", "composed_ms", "device_ms"):
             entry.setdefault(key, None)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -45,8 +45,10 @@ def _w(gen, *shape, dtype, scale=0.05):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,tracks,C", [(8, 520, 384), (64, 8, 384),
-                                        (9, 100, 256), (1, 77, 128)])
+                                        (9, 100, 256), (1, 77, 128),
+                                        (8, 112, 384)])
 def test_block_kernel_matches_plain(gen, dtype, L, tracks, C):
+    """(8, 112, 384): the few-track path's 896 rows (14 blocks)."""
     M = 4 * C
     x = _w(gen, tracks * L, C, dtype=dtype, scale=1.5)
     ws = [_w(gen, *s, dtype=dtype) for s in (
@@ -61,7 +63,7 @@ def test_block_kernel_matches_plain(gen, dtype, L, tracks, C):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R,C", [(32768, 384), (37, 256), (32312, 768),
-                                 (45, 768)])
+                                 (45, 768), (896, 384)])
 def test_ln_mlp_kernel_matches_plain(gen, dtype, R, C):
     M = 4 * C
     x = _w(gen, R, C, dtype=dtype, scale=1.5)

@@ -10,11 +10,17 @@
   csrc/host_emu.h, against the plain versions: the same arithmetic,
   indexing and barriers as on the card. f32 within 2e-5 (summation
   order); bf16 within one bf16 ulp of the O(1-4) outputs (0.03125), as a
-  different summation order may round the other way.
+  different summation order may round the other way. The bf16
+  tensor-core shapes of the block kernel and of ln_mlp at C <= 384 run
+  the ring path (cp.async weight ring, ldmatrix, mma.sync), whose
+  warp-level PTX host_emu.h emulates lane by lane; one warp of it is also
+  checked against a numpy product.
 * The wrappers' device rule: CPU tensors take the plain version and
   count no launch. The kernels themselves on the card:
   tests/test_torch_cuda.py and chip_smoke.py.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -145,6 +151,67 @@ def test_emulated_ln_mlp_kernel_matches_plain(rng, emu, dtype, R, C, M):
                                atol=tol)
 
 
+@pytest.mark.parametrize("L,tracks,C,H", [(8, 17, 128, 4), (9, 15, 96, 2)])
+def test_emulated_ring_block_matches_plain(rng, emu, L, tracks, C, H):
+    """The ring path with several slabs per product, every ring stage
+    reused, four / three 128-wide hidden chunks, a ragged last tile (L = 9:
+    63-row blocks, the last one 9 rows) and, at C = 96, warps that hold no
+    x1 column tile."""
+    x = torch.from_numpy(_mk(rng, tracks * L, C) * 20).to(torch.bfloat16)
+    params = [p.to(torch.bfloat16) for p in _torch_layout(
+        _block_params(rng, C, 4 * C))]
+    out = _emu_block(emu, x, params, L, H)
+    ref = tfm.fused_transformer_block_ref(x, *params, L, H)
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
+                               atol=0.03125)
+
+
+def test_emulated_ring_ln_mlp_matches_plain(rng, emu):
+    """ln_mlp on the ring path: 130 rows (a 2-row last tile), four hidden
+    chunks."""
+    R, C, M = 130, 128, 512
+    x = torch.from_numpy(_mk(rng, R, C) * 20).to(torch.bfloat16)
+    w1, b1, w2, b2 = [torch.from_numpy(a).to(torch.bfloat16) for a in (
+        _mk(rng, M, C), _mk(rng, M), _mk(rng, C, M), _mk(rng, C))]
+    out = torch.empty_like(x)
+    assert emu.vf_fused_ln_mlp(1, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                               w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                               R, C, M) == 0
+    ref = tfm.fused_ln_mlp_ref(x, w1, b1, w2, b2)
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
+                               atol=0.03125)
+
+
+def test_emulated_warp_mma_matches_numpy(rng, emu):
+    """cp.async, ldmatrix (.x4 and .x2) and mma.sync m16n8k16 of one warp
+    against a numpy product of the same bf16 values: products of bf16 are
+    exact in f32, the 32-term f32 sums within 1e-5 of the f64 ones."""
+    a = torch.from_numpy(rng.normal(size=(16, 32)).astype(np.float32)).to(
+        torch.bfloat16)
+    w = torch.from_numpy(rng.normal(size=(16, 32)).astype(np.float32)).to(
+        torch.bfloat16)
+    d = torch.empty(16, 16)
+    d8 = torch.empty(16, 8)
+    fn = emu.vf_emu_warp_mma
+    fn.argtypes = [ctypes.c_void_p] * 4
+    assert fn(a.data_ptr(), w.data_ptr(), d.data_ptr(), d8.data_ptr()) == 0
+    ref = a.double().numpy() @ w.double().numpy().T
+    np.testing.assert_allclose(d.numpy(), ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(d8, d[:, 8:])
+
+
+def test_ring_ablation_variants_apply():
+    """Each variant of vggsfm_tpu_torch/tools/ablate_ring.py (the ring
+    path with one part changed, timed on the card) still finds its text in
+    fused_former.cuh exactly once, and changes it."""
+    from vggsfm_tpu_torch.tools import ablate_ring
+
+    with open(f"{_build.CSRC}/fused_former.cuh") as f:
+        base = f.read()
+    for name, subs in ablate_ring.VARIANTS.items():
+        assert (ablate_ring.variant_source(base, subs) == base) == (not subs)
+
+
 def test_emulated_kernel_rejects_shapes_it_does_not_take(emu):
     x = torch.zeros(10, 800)
     # ln_mlp: C > 768; the block: C > 384, then R not a multiple of L,
@@ -210,3 +277,22 @@ def test_shared_memory_fits_a_hopper_block(emu):
         assert emu.vf_ln_mlp_smem_bytes(768, 3072, tsize) <= 232448
         for H in (8, 6):  # head dims 96 and 128, the widest tile and L
             assert emu.vf_attn_smem_bytes(768, H, 64, tsize) <= 232448
+    # the ring path's carve (bf16, 16-divisible shapes): xa, three ring
+    # stages of the widest product's rows x 40, statistics, the 64 x 32
+    # partials, and the larger of one head's scratch and the GELU chunk; at
+    # every width, head width and group length the block kernel takes
+    for C in range(16, 385, 16):
+        for H in range(1, C // 16 + 1):
+            D = C // H
+            if C % H or D % 16 or D > 64:
+                continue
+            rows = max(C, 3 * D, 128)
+            common = 64 * (C + 8) * 2 + 3 * rows * 80 + 512 + 8192
+            for L in (1, 8, 9, 64):
+                head = (64 * 3 * D * 2 + -(-64 * L * 4 // 128) * 128
+                        + 64 * (D + 8) * 2)
+                want = common + max(head, 64 * 136 * 2)
+                assert emu.vf_block_smem_bytes(C, H, L, 4 * C, 2) == want
+                assert want <= 232448
+        assert emu.vf_ln_mlp_smem_bytes(C, 4 * C, 2) == (
+            64 * (C + 8) * 2 + 3 * max(C, 128) * 80 + 512 + 8192 + 64 * 136 * 2)

@@ -8,31 +8,48 @@
 //
 // What bounds it on an H100: at the tracker's shapes the block is ~3.5 MFLOP
 // per row against ~1.5 KB of row traffic, far above the card's ~295 FLOP/B
-// ridge, so it is bound by operations: the matrix products. In bf16 they run
-// on the tensor cores (wmma 16x16x16, bf16 operands, f32 accumulation, the
-// TPU kernel's preferred_element_type=f32 dots); in f32, and for shapes the
-// 16-wide tiles do not divide, on the CUDA cores in f32 (bf16 operands
-// widened on load, so products are exact and sums f32 either way). The
-// design keeps every intermediate on-chip, which is what the TPU kernel is
-// for:
-//   * one block of 256 threads owns a tile of whole rows: 64 rows (C <= 384)
-//     or 32 rows (C <= 768) of the MLP tail; up to 64 rows = whole tracks
-//     (64 / L tracks of L rows) of the block kernel, so attention never
-//     leaves the block;
-//   * the residual stream (x1, then the MLP output) stays in registers, each
-//     thread holding a fixed (rows / 16) x (C / 16) slice of the tile: 96
-//     f32 values at both tile shapes; tensor-core products land in a shared
-//     f32 tile and are added into it;
-//   * attention runs head by head: q/k/v of one head (64 x 3D), its L x L
-//     scores and its output are the only per-head state in shared memory,
-//     and the out-projection accumulates into the register x1;
-//   * the MLP streams the hidden width in 64-wide chunks
-//     (fc1 chunk -> GELU -> accumulate fc2), so the 4C hidden never exists;
-//   * weights are read from global memory (L2-resident): straight into
-//     tensor-core fragments, or in 16-deep k-tiles staged through shared
-//     memory on the CUDA-core path.
-// Shared memory peaks at ~190 KB per block (block kernel, C=384, L=64),
-// inside the 227 KB a Hopper block may take.
+// ridge, so it is bound by operations: the matrix products (0.12 ms for
+// the coarse time block, R = 33280, at the bf16 peak). Next comes the L2
+// traffic of weights every block re-reads: 3.54 MB per 64-row block at
+// C = 384, 1.84 GB per launch at R = 33280, ~0.3 ms at the L2's rate.
+// Every instantiation keeps every intermediate on-chip, which is what the
+// TPU kernel is for:
+//   * one block of 256 threads (8 warps) owns a tile of whole rows: 64 rows
+//     (C <= 384) or 32 rows (C <= 768) of the MLP tail; up to 64 rows =
+//     whole tracks (64 / L tracks of L rows) of the block kernel, so
+//     attention never leaves the block;
+//   * the residual stream (x1, then the MLP output) stays in registers:
+//     96 f32 values per thread at C = 384 and at C = 768;
+//   * attention runs head by head on the CUDA cores: q/k/v of one head
+//     (64 x 3D), its L x L scores and its output are the only per-head
+//     state in shared memory, and the out-projection accumulates into x1;
+//   * the MLP streams the hidden width in chunks (fc1 chunk -> GELU ->
+//     accumulate fc2), so the 4C hidden never exists.
+//
+// The ring path: the bf16 tensor-core instantiations of the block kernel
+// and of ln_mlp at C <= 384 (the tracker's), block_body_ring and
+// ln_mlp_body_ring below. Against the operations it runs every product on
+// the tensor cores with mma.sync m16n8k16 (bf16 operands, f32
+// accumulation, the TPU kernel's preferred_element_type=f32 dots), both
+// operands from shared memory by ldmatrix, warps split so that every
+// product at C = 256 and 384 divides evenly over the 8 warps; x1 is the
+// accumulator of the out-projections and of fc2, so no product lands in a
+// shared f32 tile. Against the L2 latency the weights stream through a
+// ring of kStages k-slabs filled by cp.async, two slabs in flight ahead of
+// the one the tensor cores read, across product boundaries (the
+// out-projection's slabs arrive while attention runs), one barrier per
+// slab. Each weight byte enters a block once; sharing slabs across blocks
+// (clusters, TMA multicast) is what would cut the L2 traffic itself.
+//
+// The other instantiations keep the first design: f32, and bf16 shapes the
+// 16-wide tiles do not divide, on the CUDA cores in f32 (gemm_nt: bf16
+// operands widened on load, so products are exact and sums f32 either
+// way, weights staged in 16-deep k-tiles); ln_mlp at 384 < C <= 768
+// (WideTile, 32 rows) and the attention half in bf16 on wmma 16x16x16
+// (gemm_tc: weight fragments straight from global memory, products into a
+// shared f32 tile that is added to the registers).
+// Shared memory peaks at 201,216 bytes per block (ring path, C = 384,
+// D = 64, L = 64), inside the 232,448 a Hopper block may take.
 //
 // The attention half (attn_*_body) takes C up to 768 and heads up to 128
 // wide, where a C-wide f32 register tile no longer fits. It runs as three
@@ -49,9 +66,11 @@
 // softmax and x1 are f32; the normalized input, q/k/v, the probabilities,
 // the per-head outputs and the GELU output are rounded to the working dtype.
 //
-// Apart from the wmma calls the code uses only threadIdx/blockIdx,
-// __syncthreads, shared and global memory (no warp shuffles), so host_emu.h
-// can run it on the CPU for testing.
+// Apart from the wmma calls and the ring path's cp.async, ldmatrix and
+// mma.sync the code uses only threadIdx/blockIdx, __syncthreads, shared and
+// global memory (no warp shuffles: row statistics meet in shared memory),
+// so host_emu.h, which emulates those calls too, runs it on the CPU for
+// testing.
 #pragma once
 
 #ifdef __CUDACC__
@@ -132,12 +151,60 @@ __host__ __device__ inline size_t attn_scratch(int BM, int D, int L,
          + align_up(size_t(BM) * L * 4) + align_up(size_t(BM) * D * tsize);
 }
 
+// Constants and shared memory of the ring path (the bf16 tensor-core block
+// kernel and ln_mlp at C <= 384; see "the ring path" below).
+constexpr int kStages = 3;             // weight ring: stages of k-slabs
+constexpr int kRC = 128;               // MLP hidden chunk of the ring path
+constexpr int kPad = 8;                // bf16 padding of shared-memory rows
+constexpr int kRingBK = 32;            // slab depth a stage holds at its widest
+constexpr int kXT = kMaxC / 64;        // x1 column tiles (n8) per warp
+constexpr int kQT = 3 * kMaxD / 16;    // q|k|v column tiles per warp
+constexpr int kHT = kRC / 16;          // fc1 column tiles per warp
+
+// Weight rows of the widest product (C, 3D or the hidden chunk).
+__host__ __device__ inline int ring_rows(int C, int D) {
+  const int r = C > 3 * D ? C : 3 * D;
+  return r > kRC ? r : kRC;
+}
+
+__host__ __device__ inline size_t ring_stage_bytes(int C, int D) {
+  return align_up(size_t(ring_rows(C, D)) * (kRingBK + kPad) * 2);
+}
+
+// Depth of the slabs of a product with N weight rows: the deepest of 128,
+// 64 and 32 k-columns whose padded rows fit a stage.
+__host__ __device__ inline int slab_depth(int N, size_t stage) {
+  for (int bk = 128; bk > kRingBK; bk /= 2)
+    if (size_t(N) * (bk + kPad) * 2 <= stage) return bk;
+  return kRingBK;
+}
+
+// the A tile xa, the ring, the row statistics and their partials
+__host__ __device__ inline size_t ring_common(int C, int D) {
+  const size_t BM = NarrowTile::BM;
+  return align_up(BM * (C + kPad) * 2) + kStages * ring_stage_bytes(C, D)
+         + align_up(BM * 2 * 4) + align_up(BM * 32 * 4);
+}
+
+// one head's q|k|v, scores and output; the GELU chunk (they alias)
+__host__ __device__ inline size_t ring_attn_scratch(int D, int L) {
+  const size_t BM = NarrowTile::BM;
+  return align_up(BM * 3 * D * 2) + align_up(BM * L * 4)
+         + align_up(BM * (D + kPad) * 2);
+}
+
+__host__ __device__ inline size_t ring_mlp_scratch() {
+  return align_up(size_t(NarrowTile::BM) * (kRC + kPad) * 2);
+}
+
 // Rows of one ln_mlp block: the 64-row tile up to C = 384, else 32 rows.
 inline int ln_mlp_rows(int C) {
   return C <= kMaxC ? NarrowTile::BM : WideTile::BM;
 }
 
 inline size_t ln_mlp_smem_bytes(int C, int M, int tsize) {
+  if (use_tc(tsize, C, 16, M) && C <= kMaxC)
+    return ring_common(C, 0) + ring_mlp_scratch();
   const int BM = ln_mlp_rows(C);
   return common_smem(BM, C, 0, tsize, use_tc(tsize, C, 16, M))
          + mlp_scratch(BM, tsize);
@@ -145,10 +212,13 @@ inline size_t ln_mlp_smem_bytes(int C, int M, int tsize) {
 
 inline size_t block_smem_bytes(int C, int H, int L, int M, int tsize) {
   const int D = C / H;
+  if (use_tc(tsize, C, D, M)) {
+    const size_t a = ring_attn_scratch(D, L), m = ring_mlp_scratch();
+    return ring_common(C, D) + (a > m ? a : m);
+  }
   const int BM = NarrowTile::BM;
   const size_t a = attn_scratch(BM, D, L, tsize), m = mlp_scratch(BM, tsize);
-  return common_smem(BM, C, D, tsize, use_tc(tsize, C, D, M))
-         + (a > m ? a : m);
+  return common_smem(BM, C, D, tsize, false) + (a > m ? a : m);
 }
 
 // Rows a block of a whole-track kernel owns out of a BM-row tile.
@@ -240,6 +310,58 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
+#ifdef __CUDACC__
+// The warp-level PTX of the ring path (host_emu.h emulates the same five
+// calls on the CPU).
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four / two 8x8 bf16 matrices; lanes 8i..8i+7 address the rows of matrix i
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a b: a 16x16 bf16 A fragment, a 16x8 bf16 B fragment, f32 d
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const unsigned (&a)[4],
+                                          const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+#endif
+
 // CUDA-core product: acc[i][j] += sum_k A[r][k] * W[n][k] for
 // r = ty + 16 i, n = tx + 16 j: a (16 RI x K) tile (shared or global memory)
 // times the transpose of N rows of a row-major (out, in) weight in global
@@ -289,7 +411,8 @@ __device__ __forceinline__ void gemm_nt(float (&acc)[RI][NJ], const T* A,
   }
 }
 
-// Tensor-core product into shared memory:
+// wmma tensor-core product into shared memory, for the instantiations off
+// the ring path (ln_mlp's WideTile and the attention half in bf16):
 //   Y[r][n] = sum_k A[r][k] * W[row(n)][k],  r < BM, n < N,
 // Y f32 row-major with stride ldy, A bf16 (shared or global memory,
 // lda % 8 == 0), W bf16 row-major (out, in) in global memory with row stride
@@ -523,24 +646,6 @@ __device__ __forceinline__ void mlp_half(float (&acc)[TL::RI][TL::NJ], int C,
   }
 }
 
-// fused_ln_mlp: out = x + fc2(gelu(fc1(LN(x)))) on rows of (R, C), TL::BM
-// rows per block. w1 (M, C), b1 (M), w2 (C, M), b2 (C): torch Linear
-// layout (out, in).
-template <typename T, bool TC, class TL>
-__device__ __forceinline__ void ln_mlp_body(
-    const T* __restrict__ x, const T* __restrict__ w1,
-    const T* __restrict__ b1, const T* __restrict__ w2,
-    const T* __restrict__ b2, T* __restrict__ out, int R, int C, int M,
-    unsigned char* smem) {
-  const Smem s = carve<T, TC, TL>(smem, C, 0);
-  const int row0 = blockIdx.x * TL::BM;
-  const int rows = R - row0 < TL::BM ? R - row0 : TL::BM;
-  float acc[TL::RI][TL::NJ];
-  load_tile<T, TL>(acc, x, row0, rows, C);
-  mlp_half<T, TC, TL>(acc, C, M, w1, b1, w2, s);
-  store_tile<T, TL>(acc, b2, out, row0, rows, C);
-}
-
 // One head's attention within each track of a BM-row tile: q|k|v of the
 // head in qkv [BM][3D] (rounded to T), f32 scores in sc [BM][L]; the
 // output, rounded to T, goes to o[r * ldo + e] (rows past the block's
@@ -637,13 +742,537 @@ __device__ __forceinline__ void head_qkv(T* qkv, const T* A, int lda,
   __syncthreads();
 }
 
-// fused_transformer_block on rows of (R, C), attention within each group
-// of L consecutive rows (one track):
-//   xn = LN(x); x1 = xn + out_proj(MHA(xn)); out = x1 + MLP(LN(x1)).
-// w_in (3C, C) packed q|k|v, b_in (3C), w_out (C, C), b_out (C) as
-// torch.nn.MultiheadAttention; w1, b1, w2, b2 as ln_mlp_body.
-template <typename T, bool TC>
-__device__ __forceinline__ void block_body(
+// ------------------------------------------------------------ the ring path
+//
+// The bf16 tensor-core instantiations of the block kernel and of ln_mlp at
+// C <= 384 (64-row tiles). Warp w of 8, lane l, g = l / 4, t = l % 4.
+//
+// Every product reads its weight operand from a ring of kStages k-slabs in
+// shared memory: N weight rows (a torch Linear's (out, in) rows are
+// k-contiguous) x bk k-columns, rows padded by kPad so ldmatrix reads them
+// without bank conflicts. A block's slabs form one stream (WeightStream):
+// per head the q|k|v product and the out-projection, then per hidden chunk
+// fc1 and fc2. All threads fill slab g + kStages - 1 with 16-byte
+// cp.async copies while the tensor cores (mma.sync m16n8k16, fragments by
+// ldmatrix) consume slab g, across product boundaries too; one barrier per
+// slab.
+
+// The weight-slab stream of a block, in the order the block reads it; slab
+// g lives in ring stage g % kStages.
+template <typename T>
+struct WeightStream {
+  const T* w_in;
+  const T* w_out;
+  const T* w1;
+  const T* w2;
+  unsigned char* ring;
+  size_t stage;          // bytes of one ring stage
+  int C, D, M;
+  int bq, bo, b1, b2;    // slab depths: q|k|v, out-projection, fc1, fc2
+  int nq, no, n1, n2;    // slabs per product
+  int nhead;             // slabs of the attention half: H (nq + no)
+  int total;
+
+  __device__ __forceinline__ T* slab(int g) const {
+    return reinterpret_cast<T*>(ring + size_t(g % kStages) * stage);
+  }
+
+  // Issues the copies of slab g (none past the end of the stream) and
+  // commits them as one group.
+  __device__ __forceinline__ void issue(int g) const {
+    if (g < total) {
+      const T* W;
+      int ldw, N, K, bk, k0, row0 = 0, col0 = 0, seg = 0;
+      if (g < nhead) {
+        const int h = g / (nq + no), s = g - h * (nq + no);
+        if (s < nq) {  // q|k|v rows of head h: three D-row segments
+          W = w_in; ldw = C; N = 3 * D; K = C; bk = bq; k0 = s * bq;
+          row0 = h * D; seg = D;
+        } else {       // all C rows, the head's D columns
+          W = w_out; ldw = C; N = C; K = D; bk = bo; k0 = (s - nq) * bo;
+          col0 = h * D;
+        }
+      } else {
+        const int c = (g - nhead) / (n1 + n2), s = g - nhead - c * (n1 + n2);
+        const int m0 = c * kRC, mc = M - m0 < kRC ? M - m0 : kRC;
+        if (s < n1) {  // the chunk's mc rows of fc1
+          W = w1; ldw = C; N = mc; K = C; bk = b1; k0 = s * b1; row0 = m0;
+        } else {       // all C rows of fc2, the chunk's mc columns
+          W = w2; ldw = M; N = C; K = mc; bk = b2; k0 = (s - n1) * b2;
+          col0 = m0;
+        }
+      }
+      const int kb = K - k0 < bk ? K - k0 : bk;  // <= 0: an empty slab
+      if (kb > 0) {
+        // thread t copies 16-byte chunk t % cpr of rows t / cpr + i step
+        const int cpr = kb / 8, step = kThreads / cpr;
+        if (int(threadIdx.x) < step * cpr) {
+          const int c8 = threadIdx.x % cpr;
+          T* dst = slab(g) + c8 * 8;
+          const T* src = W + col0 + k0 + c8 * 8;
+          // the q|k|v segments lie C - D rows apart in w_in
+          const int skip = C - seg;
+          for (int n = threadIdx.x / cpr; n < N; n += step) {
+            const int wr = row0 + n
+                           + (seg ? ((n >= seg) + (n >= 2 * seg)) * skip : 0);
+            cp_async_16(dst + n * (bk + kPad), src + size_t(wr) * ldw);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  }
+};
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The stream of a block kernel (H heads of width D) or, with H = D = 0, of
+// ln_mlp. Every hidden chunk has the same slab count, so the last, shorter
+// chunk ends in empty slabs.
+template <typename T>
+__device__ __forceinline__ WeightStream<T> make_stream(
+    const T* w_in, const T* w_out, const T* w1, const T* w2,
+    unsigned char* ring, int C, int D, int H, int M) {
+  WeightStream<T> ws;
+  ws.w_in = w_in; ws.w_out = w_out; ws.w1 = w1; ws.w2 = w2;
+  ws.ring = ring;
+  ws.stage = ring_stage_bytes(C, D);
+  ws.C = C; ws.D = D; ws.M = M;
+  const int mc = M < kRC ? M : kRC;
+  ws.bq = slab_depth(3 * D, ws.stage);
+  ws.bo = slab_depth(C, ws.stage);
+  ws.b1 = slab_depth(mc, ws.stage);
+  ws.b2 = ws.bo;
+  ws.nq = cdiv(C, ws.bq);
+  ws.no = cdiv(D, ws.bo);
+  ws.n1 = cdiv(C, ws.b1);
+  ws.n2 = cdiv(mc, ws.b2);
+  ws.nhead = H * (ws.nq + ws.no);
+  ws.total = ws.nhead + cdiv(M, kRC) * (ws.n1 + ws.n2);
+  return ws;
+}
+
+// acc += A B^T over the next nslab slabs of the stream (one product; g
+// advances past them): A bf16 in shared memory with row stride lda (an odd
+// multiple of 16 bytes: ldmatrix without bank conflicts), B the product's
+// weight slabs, bk deep, K deep in all. The warp computes the m16 row tiles
+// mt0 .. mt0 + MT - 1 and the n8 column tiles nt0 .. nt0 + nT - 1 (nT <=
+// NT); acc[i][j] is the m16n8 fragment of row tile mt0 + i and column tile
+// nt0 + j. Each slab begins with the wait for it and one barrier; then the
+// slab kStages - 1 ahead goes into the stage read last, so callers need no
+// barrier between writing A and calling. The copies are issued whole, at
+// once: spread over the slab's 16-deep steps they hold back the ldmatrix
+// loads that share the load/store path, 1.4x slower (tools/ablate_ring.py).
+template <int MT, int NT, typename T>
+__device__ __forceinline__ void ring_product(float (&acc)[MT][NT][4],
+                                             const T* A, int lda, int mt0,
+                                             int nt0, int nT, int K, int bk,
+                                             int nslab, int& g,
+                                             const WeightStream<T>& ws) {
+  static_assert(NT % 2 == 0, "column tiles go in pairs");
+  const int lane = threadIdx.x & 31;
+  const int ldb = bk + kPad;
+  for (int s = 0; s < nslab; ++s, ++g) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int k0 = s * bk;
+    const int kb = K - k0 < bk ? K - k0 : bk;
+    const T* B = ws.slab(g);
+    ws.issue(g + kStages - 1);
+    for (int kk = 0; kk < kb; kk += 16) {
+      // A: matrices (rows +0/+8) x (k +0/+8); B: (k +0/+8) x (tiles j, j+1)
+      unsigned a[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        ldsm_x4(a[i], A + (16 * (mt0 + i) + (lane & 15)) * lda + k0 + kk
+                          + (lane >> 4) * 8);
+      const T* bp = B + (8 * nt0 + (lane & 7)) * ldb + kk
+                    + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        if (j + 1 < nT) {
+          unsigned b[4];
+          ldsm_x4(b, bp + (8 * j + (lane >> 4) * 8) * ldb);
+          const unsigned lo[2] = {b[0], b[1]}, hi[2] = {b[2], b[3]};
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            mma_16816(acc[i][j], a[i], lo);
+            mma_16816(acc[i][j + 1], a[i], hi);
+          }
+        } else if (j < nT) {
+          unsigned b[2];
+          ldsm_x2(b, bp + 8 * j * ldb);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) mma_16816(acc[i][j], a[i], b);
+        }
+      }
+    }
+  }
+}
+
+// 8 bf16 from 16-byte aligned shared memory, widened to f32
+struct alignas(16) Pack8 {
+  unsigned w[4];
+};
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  const Pack8 u = *reinterpret_cast<const Pack8*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u.w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u.w[i] & 0xffff0000u);
+  }
+}
+
+// head_attention for the ring path (bf16, D % 16 == 0): the same sums in
+// the same order, with q, k and v read 8 values per 16-byte load, so the
+// loops are not held up by one shared-memory load per product. Each P V
+// item is 8 output columns of one row.
+template <typename T, int BM>
+__device__ __forceinline__ void ring_head_attention(const T* qkv, float* sc,
+                                                    T* o, int ldo, int rows,
+                                                    int L, int D,
+                                                    float scale) {
+  const int tid = threadIdx.x, ld = 3 * D;
+  for (int idx = tid; idx < rows * L; idx += kThreads) {
+    const int r = idx / L, j = idx - r * L;
+    const T* q = qkv + r * ld;
+    const T* k = qkv + ((r / L) * L + j) * ld + D;
+    float d = 0.f;
+    for (int e0 = 0; e0 < D; e0 += 8) {
+      float qv[8], kv[8];
+      load8(q + e0, qv);
+      load8(k + e0, kv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d = fmaf(qv[e], kv[e], d);
+    }
+    sc[r * L + j] = d * scale;
+  }
+  __syncthreads();
+  for (int r = tid; r < rows; r += kThreads) {
+    float* p = sc + r * L;
+    float mx = p[0];
+    for (int j = 1; j < L; ++j) mx = fmaxf(mx, p[j]);
+    float sum = 0.f;
+    for (int j = 0; j < L; ++j) {
+      p[j] = expf(p[j] - mx);
+      sum += p[j];
+    }
+    const float inv = 1.0f / sum;
+    for (int j = 0; j < L; ++j) p[j] = round_t<T>(p[j] * inv);
+  }
+  __syncthreads();
+  const int groups = D / 8;
+  for (int idx = tid; idx < BM * groups; idx += kThreads) {
+    const int r = idx / groups, e0 = (idx - r * groups) * 8;
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r < rows) {
+      const int base = (r / L) * L;
+      const float* p = sc + r * L;
+      for (int j = 0; j < L; ++j) {
+        float v[8];
+        load8(qkv + (base + j) * ld + 2 * D + e0, v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] = fmaf(p[j], v[e], acc[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[r * ldo + e0 + e] = from_f<T>(acc[e]);
+  }
+}
+
+// The register tile x1 of the ring path: 64 rows x C f32 as m16n8
+// fragments, warp w holding all four row tiles of the column tiles
+// nt0 .. nt0 + nT - 1 (C / 8 tiles in even shares: 6 per warp at C = 384).
+// Element e of x1[i][j] is row 16 i + g + 8 (e / 2), column
+// 8 (nt0 + j) + 2 t + e % 2.
+using XAcc = float[4][kXT][4];
+
+struct XTile {
+  int nt0, nT;
+};
+
+__device__ __forceinline__ XTile x_tile(int C) {
+  const int per = cdiv(C / 8, kWarps), w = threadIdx.x >> 5;
+  const int n = C / 8 - w * per;
+  return {w * per, n < 0 ? 0 : n < per ? n : per};
+}
+
+template <typename T>
+__device__ __forceinline__ void ring_load(XAcc& v, XTile xt,
+                                          const T* __restrict__ x, int row0,
+                                          int rows, int C) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kXT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * i + (lane >> 2) + 8 * (e >> 1);
+        const int c = 8 * (xt.nt0 + j) + 2 * (lane & 3) + (e & 1);
+        v[i][j][e] = (j < xt.nT && r < rows)
+                         ? to_f<T>(x[size_t(row0 + r) * C + c]) : 0.f;
+      }
+}
+
+template <typename T>
+__device__ __forceinline__ void ring_store(const XAcc& v, XTile xt,
+                                           const T* __restrict__ bias,
+                                           T* __restrict__ out, int row0,
+                                           int rows, int C) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kXT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * i + (lane >> 2) + 8 * (e >> 1);
+        const int c = 8 * (xt.nt0 + j) + 2 * (lane & 3) + (e & 1);
+        if (j < xt.nT && r < rows)
+          out[size_t(row0 + r) * C + c] = from_f<T>(v[i][j][e]
+                                                    + to_f<T>(bias[c]));
+      }
+}
+
+// Row sums of the x1 tile, given each thread's partial sums part[i][h] of
+// its rows 16 i + g + 8 h, divided by C into stat[2 r + slot]: a row's 32
+// partials (4 lanes x 8 warps) meet in red [64][32].
+__device__ __forceinline__ void ring_row_reduce(const float (&part)[4][2],
+                                                int C, float* stat, int slot,
+                                                float* red) {
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      red[(16 * i + 8 * h + (lane >> 2)) * 32 + 4 * w + (lane & 3)] =
+          part[i][h];
+  __syncthreads();
+  if (tid < 64) {
+    float s = 0.f;
+    for (int p = 0; p < 32; ++p) s += red[tid * 32 + p];
+    stat[2 * tid + slot] = s / C;
+  }
+  __syncthreads();
+}
+
+// LayerNorm (no affine, eps 1e-6) of the x1 tile into the A tile xa,
+// rounded to T; the f32 mean and rstd of row r in stat[2r], stat[2r+1].
+// Two passes, as jnp.var.
+template <typename T>
+__device__ __forceinline__ void ring_layer_norm(const XAcc& v, XTile xt,
+                                                int C, T* xa, int lda,
+                                                float* stat, float* red) {
+  const int lane = threadIdx.x & 31;
+  float part[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < kXT; ++j)
+        if (j < xt.nT) s += v[i][j][2 * h] + v[i][j][2 * h + 1];
+      part[i][h] = s;
+    }
+  ring_row_reduce(part, C, stat, 0, red);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mean = stat[2 * (16 * i + 8 * h + (lane >> 2))];
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < kXT; ++j)
+        if (j < xt.nT) {
+          const float d0 = v[i][j][2 * h] - mean, d1 = v[i][j][2 * h + 1] - mean;
+          s += d0 * d0 + d1 * d1;
+        }
+      part[i][h] = s;
+    }
+  ring_row_reduce(part, C, stat, 1, red);
+  if (threadIdx.x < 64)
+    stat[2 * threadIdx.x + 1] = rsqrtf(stat[2 * threadIdx.x + 1] + 1e-6f);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kXT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * i + (lane >> 2) + 8 * (e >> 1);
+        const int c = 8 * (xt.nt0 + j) + 2 * (lane & 3) + (e & 1);
+        if (j < xt.nT)
+          xa[r * lda + c] = from_f<T>((v[i][j][e] - stat[2 * r])
+                                      * stat[2 * r + 1]);
+      }
+}
+
+// The MLP half of the ring path: on return x1 holds
+// x1 + fc2(gelu(fc1(LN(x1)))) without the fc2 bias. fc1 of each kRC-wide
+// hidden chunk runs on a 4 x 2 warp grid (16 rows x mc / 2 columns per
+// warp) into the GELU chunk hb; fc2 accumulates into x1.
+template <typename T>
+__device__ __forceinline__ void ring_mlp(XAcc& x1, XTile xt, int C, int M,
+                                         const T* __restrict__ b1, T* xa,
+                                         int lda, T* hb, float* stat,
+                                         float* red, int& g,
+                                         const WeightStream<T>& ws) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  constexpr int ldh = kRC + kPad;
+  ring_layer_norm<T>(x1, xt, C, xa, lda, stat, red);
+  for (int m0 = 0; m0 < M; m0 += kRC) {
+    const int mc = M - m0 < kRC ? M - m0 : kRC, hT = mc / 16;
+    float h[1][kHT][4];
+#pragma unroll
+    for (int j = 0; j < kHT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[0][j][e] = 0.f;
+    ring_product<1, kHT>(h, xa, lda, w & 3, (w >> 2) * hT, hT, C, ws.b1,
+                         ws.n1, g, ws);
+#pragma unroll
+    for (int j = 0; j < kHT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * (w & 3) + (lane >> 2) + 8 * (e >> 1);
+        const int n = 8 * ((w >> 2) * hT + j) + 2 * (lane & 3) + (e & 1);
+        if (j < hT)
+          hb[r * ldh + n] =
+              from_f<T>(gelu_erf(h[0][j][e] + to_f<T>(b1[m0 + n])));
+      }
+    ring_product<4, kXT>(x1, hb, ldh, 0, xt.nt0, xt.nT, mc, ws.b2, ws.n2, g,
+                         ws);
+  }
+}
+
+// fused_transformer_block on the ring path (see block_body).
+template <typename T>
+__device__ __forceinline__ void block_body_ring(
+    const T* __restrict__ x, const T* __restrict__ w_in,
+    const T* __restrict__ b_in, const T* __restrict__ w_out,
+    const T* __restrict__ b_out, const T* __restrict__ w1,
+    const T* __restrict__ b1, const T* __restrict__ w2,
+    const T* __restrict__ b2, T* __restrict__ out, int R, int C, int M,
+    int L, int H, unsigned char* smem) {
+  constexpr int BM = NarrowTile::BM;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int D = C / H, lda = C + kPad, ldo = D + kPad;
+  unsigned char* p = smem;
+  T* xa = reinterpret_cast<T*>(p);
+  p += align_up(size_t(BM) * lda * 2);
+  unsigned char* ring = p;
+  p += kStages * ring_stage_bytes(C, D);
+  float* stat = reinterpret_cast<float*>(p);
+  p += align_up(size_t(BM) * 2 * 4);
+  float* red = reinterpret_cast<float*>(p);
+  p += align_up(size_t(BM) * 32 * 4);
+  T* qkv = reinterpret_cast<T*>(p);  // [BM][3D]
+  float* sc = reinterpret_cast<float*>(p + align_up(size_t(BM) * 3 * D * 2));
+  T* oh = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(sc)
+                               + align_up(size_t(BM) * L * 4));  // [BM][ldo]
+  T* hb = reinterpret_cast<T*>(p);  // [BM][kRC + kPad], aliases the above
+
+  const WeightStream<T> ws =
+      make_stream<T>(w_in, w_out, w1, w2, ring, C, D, H, M);
+  for (int s = 0; s < kStages - 1; ++s) ws.issue(s);
+
+  const int BMr = block_rows(L);
+  const int row0 = blockIdx.x * BMr;
+  const int rows = R - row0 < BMr ? R - row0 : BMr;
+  const XTile xt = x_tile(C);
+  XAcc x1;
+  ring_load<T>(x1, xt, x, row0, rows, C);
+  ring_layer_norm<T>(x1, xt, C, xa, lda, stat, red);
+  // x1 starts as the f32 normalized input plus the out-proj bias (the
+  // residual base is the NORMALIZED input)
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kXT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * i + (lane >> 2) + 8 * (e >> 1);
+        const int c = 8 * (xt.nt0 + j) + 2 * (lane & 3) + (e & 1);
+        if (j < xt.nT)
+          x1[i][j][e] = (x1[i][j][e] - stat[2 * r]) * stat[2 * r + 1]
+                        + to_f<T>(b_out[c]);
+      }
+
+  int g = 0;
+  const int qT = 3 * D / 16;  // q|k|v column tiles per warp, 4 x 2 grid
+  const float scale = 1.0f / sqrtf(float(D));
+  for (int h = 0; h < H; ++h) {
+    float q[1][kQT][4];
+#pragma unroll
+    for (int j = 0; j < kQT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) q[0][j][e] = 0.f;
+    ring_product<1, kQT>(q, xa, lda, w & 3, (w >> 2) * qT, qT, C, ws.bq,
+                         ws.nq, g, ws);
+#pragma unroll
+    for (int j = 0; j < kQT; ++j) {
+      // columns n, n + 1 lie in one of the q, k, v segments (D is even)
+      const int n = 8 * ((w >> 2) * qT + j) + 2 * (lane & 3);
+      const int part = n / D, brow = part * C + h * D + n - part * D;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * (w & 3) + (lane >> 2) + 8 * (e >> 1);
+        if (j < qT)
+          qkv[r * 3 * D + n + (e & 1)] =
+              from_f<T>(q[0][j][e] + to_f<T>(b_in[brow + (e & 1)]));
+      }
+    }
+    __syncthreads();
+    ring_head_attention<T, BM>(qkv, sc, oh, ldo, rows, L, D, scale);
+    // x1 += o_h @ w_out[:, hD:(h+1)D]^T
+    ring_product<4, kXT>(x1, oh, ldo, 0, xt.nt0, xt.nT, D, ws.bo, ws.no, g,
+                         ws);
+  }
+
+  ring_mlp<T>(x1, xt, C, M, b1, xa, lda, hb, stat, red, g, ws);
+  ring_store<T>(x1, xt, b2, out, row0, rows, C);
+}
+
+// fused_ln_mlp on the ring path (see ln_mlp_body).
+template <typename T>
+__device__ __forceinline__ void ln_mlp_body_ring(
+    const T* __restrict__ x, const T* __restrict__ w1,
+    const T* __restrict__ b1, const T* __restrict__ w2,
+    const T* __restrict__ b2, T* __restrict__ out, int R, int C, int M,
+    unsigned char* smem) {
+  constexpr int BM = NarrowTile::BM;
+  const int lda = C + kPad;
+  unsigned char* p = smem;
+  T* xa = reinterpret_cast<T*>(p);
+  p += align_up(size_t(BM) * lda * 2);
+  unsigned char* ring = p;
+  p += kStages * ring_stage_bytes(C, 0);
+  float* stat = reinterpret_cast<float*>(p);
+  p += align_up(size_t(BM) * 2 * 4);
+  float* red = reinterpret_cast<float*>(p);
+  p += align_up(size_t(BM) * 32 * 4);
+  T* hb = reinterpret_cast<T*>(p);
+
+  const WeightStream<T> ws =
+      make_stream<T>(nullptr, nullptr, w1, w2, ring, C, 0, 0, M);
+  for (int s = 0; s < kStages - 1; ++s) ws.issue(s);
+
+  const int row0 = blockIdx.x * BM;
+  const int rows = R - row0 < BM ? R - row0 : BM;
+  const XTile xt = x_tile(C);
+  XAcc x1;
+  ring_load<T>(x1, xt, x, row0, rows, C);
+  int g = 0;
+  ring_mlp<T>(x1, xt, C, M, b1, xa, lda, hb, stat, red, g, ws);
+  ring_store<T>(x1, xt, b2, out, row0, rows, C);
+}
+
+// The block kernel on the CUDA cores (f32, and bf16 shapes the 16-wide
+// tensor-core tiles do not divide); see block_body.
+template <typename T>
+__device__ __forceinline__ void block_body_cc(
     const T* __restrict__ x, const T* __restrict__ w_in,
     const T* __restrict__ b_in, const T* __restrict__ w_out,
     const T* __restrict__ b_out, const T* __restrict__ w1,
@@ -654,11 +1283,11 @@ __device__ __forceinline__ void block_body(
   constexpr int BM = TL::BM;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int D = C / H;
-  const Smem s = carve<T, TC, TL>(smem, C, D);
+  const Smem s = carve<T, false, TL>(smem, C, D);
   const int BMr = block_rows(L);
   const int row0 = blockIdx.x * BMr;
   const int rows = R - row0 < BMr ? R - row0 : BMr;
-  const int lda = a_stride(C, sizeof(T), TC);
+  const int lda = a_stride(C, sizeof(T), false);
   T* xa = static_cast<T*>(s.xa);
   T* qkv = reinterpret_cast<T*>(s.scratch);  // [BM][3D]
   float* sc = reinterpret_cast<float*>(
@@ -684,20 +1313,62 @@ __device__ __forceinline__ void block_body(
   }
 
   for (int h = 0; h < H; ++h) {
-    head_qkv<T, TC, BM, 3, kNJD>(qkv, xa, lda, w_in, b_in, C, D, h, s.Y);
+    head_qkv<T, false, BM, 3, kNJD>(qkv, xa, lda, w_in, b_in, C, D, h, s.Y);
     head_attention<T, BM>(qkv, sc, oh, D, rows, L, D, scale);
     // x1 += o_h @ w_out[:, hD:(h+1)D]^T
-    if constexpr (TC) {
-      gemm_tc<T, BM>(s.Y, C, oh, D, w_out + h * D, C, C, D, C, 0);
-      add_tile<TL>(acc, s.Y, C, C);
-    } else {
-      gemm_nt<T, TL::RI, TL::NJ>(acc, oh, D, w_out + h * D, C, C, D, s.Y);
-    }
+    gemm_nt<T, TL::RI, TL::NJ>(acc, oh, D, w_out + h * D, C, C, D, s.Y);
   }
 
-  mlp_half<T, TC, TL>(acc, C, M, w1, b1, w2, s);
+  mlp_half<T, false, TL>(acc, C, M, w1, b1, w2, s);
   store_tile<T, TL>(acc, b2, out, row0, rows, C);
 }
+
+// fused_transformer_block on rows of (R, C), attention within each group
+// of L consecutive rows (one track):
+//   xn = LN(x); x1 = xn + out_proj(MHA(xn)); out = x1 + MLP(LN(x1)).
+// w_in (3C, C) packed q|k|v, b_in (3C), w_out (C, C), b_out (C) as
+// torch.nn.MultiheadAttention; w1, b1, w2, b2 as ln_mlp_body. The
+// tensor-core instantiation takes the ring path.
+template <typename T, bool TC>
+__device__ __forceinline__ void block_body(
+    const T* __restrict__ x, const T* __restrict__ w_in,
+    const T* __restrict__ b_in, const T* __restrict__ w_out,
+    const T* __restrict__ b_out, const T* __restrict__ w1,
+    const T* __restrict__ b1, const T* __restrict__ w2,
+    const T* __restrict__ b2, T* __restrict__ out, int R, int C, int M,
+    int L, int H, unsigned char* smem) {
+  if constexpr (TC)
+    block_body_ring<T>(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R,
+                       C, M, L, H, smem);
+  else
+    block_body_cc<T>(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R, C,
+                     M, L, H, smem);
+}
+
+// fused_ln_mlp: out = x + fc2(gelu(fc1(LN(x)))) on rows of (R, C), TL::BM
+// rows per block. w1 (M, C), b1 (M), w2 (C, M), b2 (C): torch Linear
+// layout (out, in). The 64-row tensor-core instantiation takes the ring
+// path.
+template <typename T, bool TC, class TL>
+__device__ __forceinline__ void ln_mlp_body(
+    const T* __restrict__ x, const T* __restrict__ w1,
+    const T* __restrict__ b1, const T* __restrict__ w2,
+    const T* __restrict__ b2, T* __restrict__ out, int R, int C, int M,
+    unsigned char* smem) {
+  if constexpr (TC && TL::MAXC == kMaxC) {
+    ln_mlp_body_ring<T>(x, w1, b1, w2, b2, out, R, C, M, smem);
+  } else {
+    const Smem s = carve<T, TC, TL>(smem, C, 0);
+    const int row0 = blockIdx.x * TL::BM;
+    const int rows = R - row0 < TL::BM ? R - row0 : TL::BM;
+    float acc[TL::RI][TL::NJ];
+    load_tile<T, TL>(acc, x, row0, rows, C);
+    mlp_half<T, TC, TL>(acc, C, M, w1, b1, w2, s);
+    store_tile<T, TL>(acc, b2, out, row0, rows, C);
+  }
+}
+
+
 
 // fused_ln_attn on rows of (R, C), attention within each group of L
 // consecutive rows, in BM-row tiles of whole tracks ((BM / L) * L rows,

@@ -194,4 +194,47 @@ size_t vf_attn_smem_bytes(int C, int H, int L, int tsize) {
   return vf::attn_smem_bytes(C, H, L, tsize);
 }
 
+// One warp of the ring path's primitives, for the tests: a (16, 32) bf16
+// A and a (16, 32) bf16 W (rows = output columns, k contiguous) go to
+// padded shared rows by cp.async; then d = A W^T (16 x 16, f32) from
+// ldmatrix.x4 fragments and two mma.sync m16n8k16 per 16-deep step, and
+// d8 = A W[8:16]^T (16 x 8) through ldmatrix.x2. Row-major outputs.
+int vf_emu_warp_mma(const void* a, const void* w, float* d, float* d8) {
+  using bf = __nv_bfloat16;
+  constexpr int ld = 32 + vf::kPad;
+  emu_launch(1, 32, 2 * 16 * ld * sizeof(bf), [&](unsigned char* s) {
+    bf* As = reinterpret_cast<bf*>(s);
+    bf* Ws = As + 16 * ld;
+    const int lane = threadIdx.x;
+    for (int idx = lane; idx < 2 * 16 * 4; idx += 32) {
+      const int m = idx / 64, r = (idx / 4) % 16, c8 = idx % 4;
+      cp_async_16((m ? Ws : As) + r * ld + c8 * 8,
+                  static_cast<const bf*>(m ? w : a) + r * 32 + c8 * 8);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float acc[2][4] = {}, acc8[4] = {};
+    for (int k = 0; k < 32; k += 16) {
+      unsigned fa[4], fb[4], fb8[2];
+      ldsm_x4(fa, As + (lane & 15) * ld + k + (lane >> 4) * 8);
+      const bf* bp = Ws + (lane & 7) * ld + k + ((lane >> 3) & 1) * 8;
+      ldsm_x4(fb, bp + (lane >> 4) * 8 * ld);
+      ldsm_x2(fb8, bp + 8 * ld);
+      const unsigned lo[2] = {fb[0], fb[1]}, hi[2] = {fb[2], fb[3]};
+      mma_16816(acc[0], fa, lo);
+      mma_16816(acc[1], fa, hi);
+      mma_16816(acc8, fa, fb8);
+    }
+    const int g = lane / 4, t = lane % 4;
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + 8 * (e / 2), c = 2 * t + e % 2;
+      d[r * 16 + c] = acc[0][e];
+      d[r * 16 + 8 + c] = acc[1][e];
+      d8[r * 8 + c] = acc8[e];
+    }
+  });
+  return 0;
+}
+
 }  // extern "C"

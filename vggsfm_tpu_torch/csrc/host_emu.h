@@ -5,7 +5,14 @@
 // __syncthreads, blocks one after another, bit-exact bfloat16 conversions
 // (round to nearest even), and the 16x16x16 nvcuda::wmma calls with every
 // lane holding the whole tile (f32 products and sums, k in order; lane 0
-// of each warp stores). Not used by the CUDA build.
+// of each warp stores). The warp-level PTX of the ring path (fused_former.cuh)
+// is emulated by its documented per-lane layouts: ldmatrix and
+// mma.sync.m16n8k16 exchange the lanes' registers through a per-warp
+// scratch between two 32-thread barriers, and each lane then computes its
+// own fragment (mma: f32 products and sums, k in order, as wmma's); a
+// cp.async copy is held back until the cp.async.wait_group that must see
+// it, the latest moment the hardware may land it, so a read of a stage
+// before its wait finds stale data. Not used by the CUDA build.
 #pragma once
 
 #include <math.h>
@@ -15,6 +22,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <type_traits>
 #include <vector>
@@ -51,6 +59,12 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
 }
 
 inline float rsqrtf(float v) { return 1.0f / sqrtf(v); }
+
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
 
 inline float emu_to_f(float v) { return v; }
 inline float emu_to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -121,6 +135,98 @@ inline std::barrier<>* emu_barrier = nullptr;
 
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 
+// ------------------------------------------- warp-level PTX of the ring path
+
+// One warp's exchange area and its 32-thread barrier.
+struct EmuWarp {
+  std::barrier<>* bar;
+  const void* addr[32];
+  unsigned a[32][4];
+  unsigned b[32][2];
+};
+
+inline EmuWarp* emu_warps = nullptr;
+
+inline EmuWarp& emu_warp() { return emu_warps[threadIdx.x / 32]; }
+
+inline float emu_bf16_half(unsigned reg, int hi) {
+  return __bfloat162float({uint16_t(hi ? reg >> 16 : reg & 0xffffu)});
+}
+
+// ldmatrix.sync.aligned.m8n8.xNM.shared.b16: lanes 8i..8i+7 give the row
+// addresses of matrix i; lane l receives, of each matrix, row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1 (the lower column in the low half).
+template <int NM>
+void emu_ldsm(unsigned* r, const void* p) {
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x % 32;
+  w.addr[lane] = p;
+  w.bar->arrive_and_wait();
+  for (int i = 0; i < NM; ++i) {
+    const uint16_t* row = static_cast<const uint16_t*>(w.addr[8 * i + lane / 4]);
+    r[i] = unsigned(row[2 * (lane % 4)]) | unsigned(row[2 * (lane % 4) + 1]) << 16;
+  }
+  w.bar->arrive_and_wait();
+}
+
+inline void ldsm_x4(unsigned (&r)[4], const void* p) { emu_ldsm<4>(r, p); }
+inline void ldsm_x2(unsigned (&r)[2], const void* p) { emu_ldsm<2>(r, p); }
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, d += a b, with
+// g = lane / 4, t = lane % 4: a0..a3 hold A[g][2t..2t+1], A[g+8][2t..],
+// A[g][2t+8..], A[g+8][2t+8..]; b0, b1 hold B[2t..2t+1][g], B[2t+8..][g];
+// d0..d3 are D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
+inline void mma_16816(float (&d)[4], const unsigned (&a)[4],
+                      const unsigned (&b)[2]) {
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i];
+  for (int i = 0; i < 2; ++i) w.b[lane][i] = b[i];
+  w.bar->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + 8 * (i / 2), n = 2 * t + i % 2;
+    float s = d[i];
+    for (int k = 0; k < 16; ++k) {
+      const float av = emu_bf16_half(
+          w.a[(r % 8) * 4 + (k % 8) / 2][r / 8 + 2 * (k / 8)], k % 2);
+      const float bv = emu_bf16_half(w.b[n * 4 + (k % 8) / 2][k / 8], k % 2);
+      s = fmaf(av, bv, s);
+    }
+    d[i] = s;
+  }
+  w.bar->arrive_and_wait();
+}
+
+// cp.async.cg.shared.global (16 bytes), commit_group, wait_group N
+struct EmuCopy {
+  void* dst;
+  const void* src;
+  long group;
+};
+
+inline thread_local std::vector<EmuCopy> emu_copies;
+inline thread_local long emu_groups = 0;
+
+inline void cp_async_16(void* dst, const void* src) {
+  emu_copies.push_back({dst, src, emu_groups});
+}
+
+inline void cp_async_commit() { ++emu_groups; }
+
+// lands every copy but those of the N most recently committed groups
+template <int N>
+void cp_async_wait() {
+  const long done = emu_groups - N;
+  std::vector<EmuCopy> left;
+  for (const EmuCopy& c : emu_copies) {
+    if (c.group < done)
+      std::memcpy(c.dst, c.src, 16);
+    else
+      left.push_back(c);
+  }
+  emu_copies.swap(left);
+}
+
 // Runs body(smem) for every thread of `grid` x `grid_y` blocks of `threads`
 // threads, blockIdx.x fastest.
 template <class F>
@@ -132,6 +238,15 @@ void emu_launch(int grid, int threads, size_t smem_bytes, F body,
     std::fill(smem.begin(), smem.end(), NAN);
     std::barrier<> bar(threads);
     emu_barrier = &bar;
+    const int nwarps = (threads + 31) / 32;
+    std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+    std::vector<EmuWarp> warps(nwarps);
+    for (int w = 0; w < nwarps; ++w) {
+      warp_bars.push_back(std::make_unique<std::barrier<>>(
+          std::min(32, threads - 32 * w)));
+      warps[w].bar = warp_bars.back().get();
+    }
+    emu_warps = warps.data();
     std::vector<std::thread> pool;
     pool.reserve(threads);
     for (int t = 0; t < threads; ++t)
@@ -143,5 +258,6 @@ void emu_launch(int grid, int threads, size_t smem_bytes, F body,
       });
     for (auto& th : pool) th.join();
     emu_barrier = nullptr;
+    emu_warps = nullptr;
   }
 }
