@@ -8,17 +8,17 @@ prints no result line):
 
 1. card: the GPU's name and power limit (nvidia-smi), then the build of
    the kernels from vggsfm_tpu_torch/csrc (nvcc, sm_90a), its time, each
-   kernel's registers and spills (ptxas), and the ring path's shared
-   memory per block;
+   kernel's registers and spills (ptxas), and the shared memory per block
+   of the ring path, the wide MLP path and the attention half;
 2. kernels: each hand-written kernel on the card at the main path's
    shapes (the tracker's, the few-track path's 896 rows, the camera
    trunk's and cross-attention tails', and the attention probe's), in
    bf16 and f32, against its plain PyTorch version on the same inputs
    (each element within the stated bound: `err_over_bound`), with both
-   times and the bound; for the block and ln_mlp kernels also the
-   achieved TFLOP/s, the share of the bound, the weight bytes the blocks
-   read from L2, and in bf16 `composed_ms`: the same function from the
-   fewest stock calls (LayerNorm, Linear, SDPA, GELU), a yardstick the
+   times and the bound, the achieved TFLOP/s, the share of the bound, the
+   weight bytes the blocks read from L2 under each kernel's design, and
+   `composed_ms`: the same function from the fewest stock calls
+   (LayerNorm, Linear, SDPA, GELU; f32 with TF32 off), a yardstick the
    port never calls (`library_ms` stays null: no single call computes
    the function); then the correlation
    kernel at the few-track shapes (coarse level 0 and the coarsest level
@@ -205,6 +205,27 @@ def device_time_ms(fn, iters: int, match: str):
         return None
 
 
+def device_ms_per_call(fn, iters: int):
+    """Device time per call of fn, all its kernels summed (torch.profiler):
+    what a call of several kernels takes on the card, apart from the
+    host's launch rate. None where the profiler traces no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_dev_us(ev) for ev in prof.key_averages())
+        return us / 1e3 / iters if us > 0 else None
+    except Exception as e:  # the profiler may be unavailable on a host
+        print(f"profile: not available ({e!r})")
+        return None
+
+
 # ------------------------------------------------------------- phase 2
 
 def block_work(R, L, C, M, tsize):
@@ -222,14 +243,32 @@ def attn_work(R, L, C, tsize):
                                                   + 4 * C)
 
 
-def weight_traffic(kind, R, L, C, M, tsize):
-    """(blocks, bytes) of the weight matrices the blocks of one launch read
-    from L2: every block reads every weight once (biases left out)."""
+def weight_traffic(kind, R, L, C, M, dtype, lib, sms):
+    """(what, bytes) of the weight matrices the blocks of one launch read
+    from L2, biases left out: every whole-row block reads every weight
+    once; on the wide MLP path each 128-row tile reads w1 and w2 once
+    (fc1 and fc2 tiles together); in the attention half's GEMMs each row
+    tile (cc_tile: 64 or 16 rows) reads its product's weight once."""
+    import torch
+
+    from vggsfm_tpu_torch.ops import fused_mlp as fm
+
+    tsize = torch.tensor([], dtype=dtype).element_size()
     if kind == "block":
-        rows = (64 // L) * L
-        return -(-R // rows), tsize * (4 * C * C + 2 * C * M)
-    rows = 64 if C <= 384 else 32
-    return -(-R // rows), tsize * 2 * C * M
+        n, w = -(-R // ((64 // L) * L)), tsize * (4 * C * C + 2 * C * M)
+        return f"{n} blocks x {w} B", n * w
+    if kind == "attn":
+        rq = 16 * (lib.vf_cc_tile(R, 3 * C, sms) // 10)
+        ro = 16 * (lib.vf_cc_tile(R, C, sms) // 10)
+        nq, no = -(-R // rq), -(-R // ro)
+        wq, wo = tsize * 3 * C * C, tsize * C * C
+        return (f"q|k|v {nq} row tiles x {wq} B + out-projection {no} x "
+                f"{wo} B", nq * wq + no * wo)
+    wide = lib.vf_ln_mlp_kernels(1 if dtype == torch.bfloat16 else 0, C,
+                                 M) == fm.WIDE_MLP_KERNELS
+    rows = 128 if wide else 64 if C <= 384 else 32
+    n, w = -(-R // rows), tsize * 2 * C * M
+    return f"{n} {rows}-row tiles x {w} B", n * w
 
 
 def composed_mlp(x, w1, b1, w2, b2):
@@ -241,10 +280,10 @@ def composed_mlp(x, w1, b1, w2, b2):
     return x + F.linear(h, w2, b2)
 
 
-def composed_block(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, L, H):
-    """The block from stock calls (LayerNorm, Linear, SDPA over
-    (R / L, H, L, D), Linear, then `composed_mlp`), with the normalized
-    residual: a yardstick, printed only; the port never calls it."""
+def composed_attn(x, w_in, b_in, w_out, b_out, L, H):
+    """LN(x) + out_proj(MHA(LN(x))) from stock calls (LayerNorm, Linear,
+    SDPA over (R / L, H, L, D), Linear) with the normalized residual: a
+    yardstick, printed only; the port never calls it."""
     import torch.nn.functional as F
 
     R, C = x.shape
@@ -252,8 +291,14 @@ def composed_block(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, L, H):
     q, k, v = F.linear(xn, w_in, b_in).view(R // L, L, 3, H, C // H).permute(
         2, 0, 3, 1, 4)
     o = F.scaled_dot_product_attention(q, k, v)
-    x1 = xn + F.linear(o.transpose(1, 2).reshape(R, C), w_out, b_out)
-    return composed_mlp(x1, w1, b1, w2, b2)
+    return xn + F.linear(o.transpose(1, 2).reshape(R, C), w_out, b_out)
+
+
+def composed_block(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, L, H):
+    """The block from stock calls (`composed_attn`, then `composed_mlp`):
+    a yardstick, printed only; the port never calls it."""
+    return composed_mlp(composed_attn(x, w_in, b_in, w_out, b_out, L, H),
+                        w1, b1, w2, b2)
 
 
 def bound_ms(flops, nbytes, dtype_name):
@@ -266,8 +311,11 @@ def bound_ms(flops, nbytes, dtype_name):
 def kernel_phase(report: dict, extra: dict) -> None:
     import torch
 
+    from vggsfm_tpu_torch.ops import _build
     from vggsfm_tpu_torch.ops import fused_mlp as fm
 
+    lib = _build.load_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator().manual_seed(0)
 
     def rnd(*shape, scale=0.05):
@@ -328,7 +376,9 @@ def kernel_phase(report: dict, extra: dict) -> None:
                 def plain():
                     return fm.fused_ln_attn_ref(x, *ws, L, H)
 
-                composed = None
+                def composed():
+                    return composed_attn(x, *ws, L, H)
+
                 flops, nbytes = attn_work(R, L, C, tsize)
                 name = "fused_ln_attn"
             else:
@@ -355,32 +405,34 @@ def kernel_phase(report: dict, extra: dict) -> None:
             ms = cuda_time_ms(kern, iters)
             plain_ms = cuda_time_ms(plain, iters)
             bms, by = bound_ms(flops, nbytes, dn)
+            # the camera's multi-kernel calls: their device time too
+            dev_ms = (device_ms_per_call(kern, iters) if kind == "attn"
+                      or label == "camera cross-attn tail" else None)
             ok = finite and frac <= 1.0
             line = (f"kernel {name} [{label}] R={R} L={L} C={C} H={H} {dn}: "
                     f"max_abs_err={err:.3e} (small-output {err_small:.3e}; "
                     f"{frac:.3f} of the bound) "
                     f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} "
                     f"({by})")
-            comp_ms = None
-            if composed is not None:
-                # achieved rate, share of the bound, the weights the blocks
-                # read from L2, and the stock-call yardstick (bf16 only)
-                blocks, wbytes = weight_traffic(kind, R, L, C, M, tsize)
-                line += (f" {flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.1%} of "
-                         f"the bound; L2 weight traffic {blocks} blocks x "
-                         f"{wbytes} B = {blocks * wbytes / 1e9:.3f} GB")
-                if dtype == torch.bfloat16:
-                    comp_ms = cuda_time_ms(composed, iters)
-                    comp_err = float((composed().float() - ref.float()).abs()
-                                     .max())
-                    line += (f"; composed_ms={comp_ms:.4f} (stock bf16 calls, "
-                             f"max |composed - plain| {comp_err:.3e})")
-                rows.append({"name": name, "case": label, "dtype": dn,
-                             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                             "tflops": flops / ms / 1e9,
-                             "l2_weight_bytes": blocks * wbytes,
-                             "composed_ms": comp_ms, "max_abs_err": err,
-                             "err_over_bound": frac})
+            if dev_ms is not None:
+                line += f" device_ms={dev_ms:.4f} (profiler, its kernels)"
+            # achieved rate, share of the bound, the weights the blocks
+            # read from L2, and the stock-call yardstick (f32: TF32 off)
+            what, wbytes = weight_traffic(kind, R, L, C, M, dtype, lib, sms)
+            line += (f" {flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.1%} of "
+                     f"the bound; L2 weight traffic {what} = "
+                     f"{wbytes / 1e9:.3f} GB")
+            torch.backends.cuda.matmul.allow_tf32 = False
+            comp_ms = cuda_time_ms(composed, iters)
+            comp_err = float((composed().float() - ref.float()).abs().max())
+            line += (f"; composed_ms={comp_ms:.4f} (stock {dn} calls, "
+                     f"max |composed - plain| {comp_err:.3e})")
+            rows.append({"name": name, "case": label, "dtype": dn,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                         "tflops": flops / ms / 1e9,
+                         "l2_weight_bytes": wbytes,
+                         "composed_ms": comp_ms, "device_ms": dev_ms,
+                         "max_abs_err": err, "err_over_bound": frac})
             print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"{name} [{label}] {dn}: err {err}, "
@@ -389,7 +441,7 @@ def kernel_phase(report: dict, extra: dict) -> None:
                 report[name].update(
                     max_abs_err=err, err_over_bound=frac, ms=ms,
                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=None, composed_ms=comp_ms)
+                    library_ms=None, composed_ms=comp_ms, device_ms=dev_ms)
             del x, ws, out, ref
 
 
@@ -797,9 +849,10 @@ def camera_phase(report: dict, launches: dict) -> None:
     assert bool(((focal >= 0.2 * size) & (focal <= 5.0 * size)).all()), \
         focal
     # per camera forward: 4 iterations x 4 trunk blocks' attention halves
-    # (three kernels each), 8 cross-attention tails; the ranking launches
-    # none
-    want = {"fused_transformer_block": 0, "fused_ln_mlp": 8,
+    # (ATTN_KERNELS kernels each), 8 cross-attention tails (the wide MLP
+    # path's WIDE_MLP_KERNELS each); the ranking launches none
+    want = {"fused_transformer_block": 0,
+            "fused_ln_mlp": 8 * fm.WIDE_MLP_KERNELS,
             "fused_ln_attn": 16 * fm.ATTN_KERNELS, "corr_sample_pallas": 0,
             "corr_sample_pallas_smallc": 0}
     assert launches == want, f"launch counts {launches}, expected {want}"
@@ -1236,7 +1289,10 @@ def main() -> int:
               f"H=8 L=8 {lib.vf_block_smem_bytes(384, 8, 8, 1536, 2)} B, "
               f"L=64 {lib.vf_block_smem_bytes(384, 8, 64, 1536, 2)} B; "
               f"ln_mlp bf16 C=384 {lib.vf_ln_mlp_smem_bytes(384, 1536, 2)} "
-              f"B (of 232448)", flush=True)
+              f"B; wide ln_mlp GEMM bf16 C=768 "
+              f"{lib.vf_ln_mlp_smem_bytes(768, 3072, 2)} B; ln_attn C=768 "
+              f"H=8 L=8 f32 {lib.vf_attn_smem_bytes(768, 8, 8, 4)} B (of "
+              f"232448)", flush=True)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: kernel build FAILED", flush=True)

@@ -12,8 +12,11 @@
   order); bf16 within one bf16 ulp of the O(1-4) outputs (0.03125), as a
   different summation order may round the other way. The bf16
   tensor-core shapes of the block kernel and of ln_mlp at C <= 384 run
-  the ring path (cp.async weight ring, ldmatrix, mma.sync), whose
-  warp-level PTX host_emu.h emulates lane by lane; one warp of it is also
+  the ring path (cp.async weight ring, ldmatrix, mma.sync), ln_mlp in
+  bf16 above C = 384 the wide path (LayerNorm pass, two mma.sync GEMMs on
+  a cp.async ring), fused_ln_attn its four kernels (LayerNorm pass, two
+  CUDA-core GEMMs on a cp.async ring, attention core); host_emu.h
+  emulates the warp-level PTX lane by lane; one warp of it is also
   checked against a numpy product.
 * The wrappers' device rule: CPU tensors take the plain version and
   count no launch. The kernels themselves on the card:
@@ -59,8 +62,10 @@ def test_block_plain_matches_pallas(rng, L, tracks, C, H):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=5e-5)
 
 
-@pytest.mark.parametrize("R,C,M", [(1000, 384, 1536), (37, 128, 512)])
+@pytest.mark.parametrize("R,C,M", [(1000, 384, 1536), (37, 128, 512),
+                                   (40, 768, 3072)])
 def test_ln_mlp_plain_matches_pallas(rng, R, C, M):
+    """(40, 768, 3072): the camera's cross-attention tail width."""
     x = _mk(rng, R, C) * 20  # ragged R -> the kernel's padding path
     w1, b1, w2, b2 = _mk(rng, C, M), _mk(rng, M), _mk(rng, M, C), _mk(rng, C)
     ref = jfm.fused_ln_mlp(x, w1, b1, w2, b2, interpret=True)
@@ -130,25 +135,56 @@ def test_emulated_block_kernel_matches_plain(rng, emu, dtype, L, tracks, C,
                                atol=tol)
 
 
+def _emu_ln_mlp(lib, x, w1, b1, w2, b2):
+    """The kernels' ln_mlp with the wide path's scratch where it takes it
+    (as the wrapper allocates it)."""
+    R, C = x.shape
+    M = w1.shape[0]
+    out = torch.empty_like(x)
+    nbytes = lib.vf_ln_mlp_scratch_bytes(_DT[x.dtype], R, C, M)
+    scratch = torch.empty(nbytes, dtype=torch.uint8)
+    rc = lib.vf_fused_ln_mlp(_DT[x.dtype], x.data_ptr(), w1.data_ptr(),
+                             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                             out.data_ptr(),
+                             scratch.data_ptr() if nbytes else None, R, C, M)
+    assert rc == 0
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R,C,M", [(130, 64, 256), (5, 48, 100),
-                                   (40, 768, 64), (3, 400, 96)])
+                                   (40, 768, 64), (3, 400, 96),
+                                   (130, 768, 256)])
 def test_emulated_ln_mlp_kernel_matches_plain(rng, emu, dtype, R, C, M):
     """M = 100 (not a multiple of 16) takes the CUDA-core instantiation in
-    bf16, M = 256 the tensor-core one; C = 768 and 400 the 32-row tile of
-    the rows wider than 384 (a narrow hidden width keeps it quick)."""
+    bf16, M = 256 the tensor-core one; in f32 C = 768 and 400 take the
+    32-row tile of the rows wider than 384, in bf16 the wide path: at
+    (130, 768, 256) two 128-row tiles (the second 2 rows), two fc1 column
+    tiles, 24 slabs of fc1 and 8 of fc2 through the 4-stage ring, at
+    (3, 400, 96) a 16-deep last slab and ragged columns."""
     x = torch.from_numpy(_mk(rng, R, C) * 20).to(dtype)
     w1, b1, w2, b2 = [torch.from_numpy(a).to(dtype) for a in (
         _mk(rng, M, C), _mk(rng, M), _mk(rng, C, M), _mk(rng, C))]
-    out = torch.empty_like(x)
-    rc = emu.vf_fused_ln_mlp(_DT[dtype], x.data_ptr(), w1.data_ptr(),
-                             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                             out.data_ptr(), R, C, M)
-    assert rc == 0
+    out = _emu_ln_mlp(emu, x, w1, b1, w2, b2)
     ref = tfm.fused_ln_mlp_ref(x, w1, b1, w2, b2)
     tol = 2e-5 if dtype == torch.float32 else 0.03125
     np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
                                atol=tol)
+
+
+def test_ln_mlp_kernel_count_and_scratch(emu):
+    """The wide path (WIDE_MLP_KERNELS launches per call, xn and h as bf16
+    scratch) only in bf16 above C = 384 with M a multiple of 16; one
+    kernel and no scratch otherwise."""
+    for dt in (torch.float32, torch.bfloat16):
+        for C, M in ((768, 3072), (400, 96), (384, 1536), (768, 100),
+                     (64, 256)):
+            wide = dt == torch.bfloat16 and C > 384 and M % 16 == 0
+            assert emu.vf_ln_mlp_kernels(_DT[dt], C, M) == (
+                tfm.WIDE_MLP_KERNELS if wide else 1)
+            assert emu.vf_ln_mlp_scratch_bytes(_DT[dt], 10, C, M) == (
+                10 * (C + M) * 2 if wide else 0)
+    assert tfm.WIDE_MLP_KERNELS == 3
 
 
 @pytest.mark.parametrize("L,tracks,C,H", [(8, 17, 128, 4), (9, 15, 96, 2)])
@@ -173,10 +209,7 @@ def test_emulated_ring_ln_mlp_matches_plain(rng, emu):
     x = torch.from_numpy(_mk(rng, R, C) * 20).to(torch.bfloat16)
     w1, b1, w2, b2 = [torch.from_numpy(a).to(torch.bfloat16) for a in (
         _mk(rng, M, C), _mk(rng, M), _mk(rng, C, M), _mk(rng, C))]
-    out = torch.empty_like(x)
-    assert emu.vf_fused_ln_mlp(1, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                               w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                               R, C, M) == 0
+    out = _emu_ln_mlp(emu, x, w1, b1, w2, b2)
     ref = tfm.fused_ln_mlp_ref(x, w1, b1, w2, b2)
     np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
                                atol=0.03125)
@@ -212,11 +245,26 @@ def test_ring_ablation_variants_apply():
         assert (ablate_ring.variant_source(base, subs) == base) == (not subs)
 
 
+def test_camera_ablation_variants_apply():
+    """Each variant of vggsfm_tpu_torch/tools/ablate_camera.py (the wide
+    MLP path and the attention half with one design choice changed, timed
+    on the card) finds its text in fused_former.cuh exactly once."""
+    from vggsfm_tpu_torch.tools import ablate_camera, ablate_ring
+
+    with open(f"{_build.CSRC}/fused_former.cuh") as f:
+        base = f.read()
+    for name, subs in ablate_camera.VARIANTS.items():
+        assert (ablate_ring.variant_source(base, subs) == base) == (not subs)
+
+
 def test_emulated_kernel_rejects_shapes_it_does_not_take(emu):
     x = torch.zeros(10, 800)
     # ln_mlp: C > 768; the block: C > 384, then R not a multiple of L,
     # then L > 64
-    assert emu.vf_fused_ln_mlp(0, *[x.data_ptr()] * 6, 10, 784, 8) == -2
+    assert emu.vf_fused_ln_mlp(0, *[x.data_ptr()] * 7, 10, 784, 8) == -2
+    # the wide path without its scratch
+    assert emu.vf_fused_ln_mlp(1, *[x.data_ptr()] * 6, None, 10, 768,
+                               64) == -9
     assert emu.vf_fused_block(0, *[x.data_ptr()] * 10, 10, 400, 8, 2,
                               4) == -2
     assert emu.vf_fused_block(0, *[x.data_ptr()] * 10, 10, 64, 8, 3,
@@ -224,48 +272,63 @@ def test_emulated_kernel_rejects_shapes_it_does_not_take(emu):
     assert emu.vf_fused_block(0, *[x.data_ptr()] * 10, 130, 64, 8, 65,
                               4) == -4
     # ln_attn: heads wider than 128, then groups longer than 64 rows
-    assert emu.vf_fused_ln_attn(0, *[x.data_ptr()] * 8, 16, 512, 8,
-                                2) == -6
-    assert emu.vf_fused_ln_attn(0, *[x.data_ptr()] * 8, 130, 64, 65,
-                                4) == -4
+    assert emu.vf_fused_ln_attn(0, *[x.data_ptr()] * 7, 16, 512, 8,
+                                2, 132) == -6
+    assert emu.vf_fused_ln_attn(0, *[x.data_ptr()] * 7, 130, 64, 65,
+                                4, 132) == -4
 
 
-def _emu_attn(lib, x, params, L, H):
+def _emu_attn(lib, x, params, L, H, sms):
     R, C = x.shape
-    scratch = [torch.empty(lib.vf_attn_scratch_rows(R, L), C, dtype=x.dtype)
-               for _ in range(2)]
+    nbytes = lib.vf_attn_scratch_bytes(_DT[x.dtype], R, C)
+    assert nbytes == R * C * x.element_size() * 5 + R * 8
+    scratch = torch.empty(nbytes, dtype=torch.uint8)
     out = torch.empty_like(x)
     rc = lib.vf_fused_ln_attn(_DT[x.dtype], x.data_ptr(),
                               *[p.data_ptr() for p in params],
-                              out.data_ptr(), *[t.data_ptr() for t in scratch],
-                              R, C, L, H)
+                              out.data_ptr(), scratch.data_ptr(), R, C, L, H,
+                              sms)
     assert rc == 0
     return out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L,tracks,C,H,bm", [(8, 9, 192, 2, 16),
-                                             (40, 3, 64, 4, 64),
-                                             (9, 7, 48, 3, 16),
-                                             (20, 3, 32, 2, 32),
-                                             (33, 2, 32, 2, 64),
-                                             (1, 20, 96, 12, 16)])
+@pytest.mark.parametrize("L,tracks,C,H,bm,sms,tiles", [
+    (8, 9, 192, 2, 16, 16, (41, 41)),
+    (40, 3, 64, 4, 64, 1, (44, 44)),
+    (9, 7, 48, 3, 16, 132, (11, 11)),
+    (20, 3, 32, 2, 32, 1, (44, 41)),
+    (33, 2, 32, 2, 64, 132, (11, 11)),
+    (1, 20, 96, 12, 16, 4, (41, 41))])
 def test_emulated_ln_attn_kernel_matches_plain(rng, emu, dtype, L, tracks,
-                                               C, H, bm):
-    """The group length L picks a row tile of `bm` = 16, 32 or 64 rows
-    (the smallest holding a track), with ragged last blocks; head dim 96
-    (C = 192, 2 heads); head dim 8 takes the CUDA-core instantiation in
-    bf16, the others the tensor-core one."""
-    tiles = -(-(tracks * L) // ((bm // L) * L))
-    assert emu.vf_attn_scratch_rows(tracks * L, L) == tiles * bm
-    x = torch.from_numpy(_mk(rng, tracks * L, C) * 20).to(dtype)
+                                               C, H, bm, sms, tiles):
+    """The group length L picks the attention core's row tile of `bm` =
+    16, 32 or 64 rows (the smallest holding a track), with ragged last
+    blocks; head dims 96 (C = 192, 2 heads), 16, 8; the card's SM count
+    `sms` picks the GEMM tiles (q|k|v, out-projection) as 10 RT + CT:
+    64 x 64, 64 x 16 or 16 x 16, each with ragged rows or columns."""
+    R = tracks * L
+    assert (emu.vf_cc_tile(R, 3 * C, sms), emu.vf_cc_tile(R, C, sms)) == \
+        tiles
+    x = torch.from_numpy(_mk(rng, R, C) * 20).to(dtype)
     params = [p.to(dtype) for p in _torch_layout(
         _block_params(rng, C, 4 * C)[:4])]
-    out = _emu_attn(emu, x, params, L, H)
+    out = _emu_attn(emu, x, params, L, H, sms)
     ref = tfm.fused_ln_attn_ref(x, *params, L, H)
     tol = 2e-5 if dtype == torch.float32 else 0.03125
     np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
                                atol=tol)
+
+
+def test_attention_gemm_tiles_spread_over_the_card(emu):
+    """At the camera trunk (R = 64, C = 768) on 132 SMs the q|k|v product
+    runs 144 blocks of 64 x 16 and the out-projection 192 of 16 x 16; at
+    R = 4096 both take 64 x 64 tiles."""
+    assert emu.vf_cc_tile(64, 3 * 768, 132) == 41
+    assert emu.vf_cc_tile(64, 768, 132) == 11
+    assert emu.vf_cc_tile(4096, 3 * 768, 132) == 44
+    assert emu.vf_cc_tile(4096, 768, 132) == 44
+    assert emu.vf_cc_tile(72, 768, 132) == 11
 
 
 def test_shared_memory_fits_a_hopper_block(emu):
@@ -277,6 +340,16 @@ def test_shared_memory_fits_a_hopper_block(emu):
         assert emu.vf_ln_mlp_smem_bytes(768, 3072, tsize) <= 232448
         for H in (8, 6):  # head dims 96 and 128, the widest tile and L
             assert emu.vf_attn_smem_bytes(768, H, 64, tsize) <= 232448
+    # the wide path's GEMM: 3 stages of 128 A rows and 128 W rows, 64 deep
+    # padded to 72 (bf16)
+    assert emu.vf_ln_mlp_smem_bytes(768, 3072, 2) == 3 * 256 * 72 * 2
+    # the attention half: its largest carve, the attention core's q|k|v,
+    # scores and output at head dim 128 and L = 64 (f32), beside the GEMM's
+    # ring of slabs of 272-byte rows: 2 stages of 128 rows (64 x 64 tile)
+    core = 64 * 384 * 4 + 64 * 64 * 4 + 64 * 128 * 4
+    gemm = 2 * 128 * 272
+    assert emu.vf_attn_smem_bytes(768, 6, 64, 4) == max(core, gemm)
+    assert emu.vf_attn_smem_bytes(768, 8, 8, 2) == gemm
     # the ring path's carve (bf16, 16-divisible shapes): xa, three ring
     # stages of the widest product's rows x 40, statistics, the 64 x 32
     # partials, and the larger of one head's scratch and the GELU chunk; at

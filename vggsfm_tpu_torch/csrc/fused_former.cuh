@@ -3,20 +3,22 @@
 //
 // Replaces vggsfm_tpu/ops/fused_mlp.py:
 //   fused_transformer_block (_block_kernel) -> block_body below,
-//   fused_ln_mlp (_kernel)                  -> ln_mlp_body below,
-//   fused_ln_attn (_attn_kernel)            -> attn_*_body below.
+//   fused_ln_mlp (_kernel)                  -> ln_mlp_body below; at
+//       384 < C <= 768 in bf16: ln_rows_body + tc_gemm_body (three kernels),
+//   fused_ln_attn (_attn_kernel)            -> ln_rows_body, cc_gemm_body,
+//       attn_core_body, cc_gemm_body (four kernels).
 //
-// What bounds it on an H100: at the tracker's shapes the block is ~3.5 MFLOP
-// per row against ~1.5 KB of row traffic, far above the card's ~295 FLOP/B
-// ridge, so it is bound by operations: the matrix products (0.12 ms for
-// the coarse time block, R = 33280, at the bf16 peak). Next comes the L2
-// traffic of weights every block re-reads: 3.54 MB per 64-row block at
+// What bounds them on an H100: at the tracker's shapes the block is ~3.5
+// MFLOP per row against ~1.5 KB of row traffic, far above the card's ~295
+// FLOP/B ridge, so it is bound by operations: the matrix products (0.12 ms
+// for the coarse time block, R = 33280, at the bf16 peak). Next comes the
+// L2 traffic of weights every block re-reads: 3.54 MB per 64-row block at
 // C = 384, 1.84 GB per launch at R = 33280, ~0.3 ms at the L2's rate.
-// Every instantiation keeps every intermediate on-chip, which is what the
-// TPU kernel is for:
+// The whole-row instantiations keep every intermediate on-chip, which is
+// what the TPU kernel is for:
 //   * one block of 256 threads (8 warps) owns a tile of whole rows: 64 rows
-//     (C <= 384) or 32 rows (C <= 768) of the MLP tail; up to 64 rows =
-//     whole tracks (64 / L tracks of L rows) of the block kernel, so
+//     (C <= 384) or 32 rows (C <= 768, f32 only) of the MLP tail; up to 64
+//     rows = whole tracks (64 / L tracks of L rows) of the block kernel, so
 //     attention never leaves the block;
 //   * the residual stream (x1, then the MLP output) stays in registers:
 //     96 f32 values per thread at C = 384 and at C = 768;
@@ -41,41 +43,59 @@
 // slab. Each weight byte enters a block once; sharing slabs across blocks
 // (clusters, TMA multicast) is what would cut the L2 traffic itself.
 //
+// The wide MLP path: ln_mlp in bf16 at 384 < C <= 768 (the camera's
+// cross-attention tails, R = 32312, C = 768, M = 3072: 305 GFLOP, 0.31 ms
+// at the bf16 peak, bound by operations). A whole-row tile there holds 32
+// rows at most, and every 32-row block re-read all 9.4 MB of weights (9.5
+// GB of L2 reads per launch). So the op runs as three kernels with the
+// TPU kernel's rounding points: ln_rows_body writes xn = bf16(LN(x));
+// tc_gemm_body writes h = bf16(gelu(xn w1^T + b1)), then out = bf16(x +
+// (h w2^T + b2)). Each GEMM block computes a 128 x 128 output tile (warp
+// tile 64 x 32 on mma.sync m16n8k16, accumulators in registers to the
+// epilogue) with both operands streamed through a three-stage cp.async
+// ring of 64-deep k-slabs and read by ldmatrix: 64 FLOP per byte staged,
+// every weight byte read once per 128 rows (2.4 GB of L2 weight reads per
+// launch). Each thread finds its copies' source rows once (SlabCopy): the
+// copies the compute warps issue per slab are then a cp.async and an add
+// each. h (R x M bf16, 199 MB at the camera's shape) goes through device
+// memory once each way, 0.12 ms at its rate.
+//
+// The attention half (fused_ln_attn, C <= 768, heads up to 128 wide): at
+// the camera trunk (R = 64, L = 8, C = 768, f32) it is 0.3 GFLOP against
+// 9.4 MB of f32 weights, so what bounds it is spreading the weight stream
+// over the card and keeping it in flight. Four kernels: ln_rows_body (xs =
+// LN(x) rounded to T, and the f32 row statistics); cc_gemm_body for qkv =
+// T(xs w_in^T + b_in); attn_core_body, one block per (row tile of whole
+// tracks, head), softmax(q k^T / sqrt(D)) v into os; cc_gemm_body for out =
+// T(LN(x) + (os w_out^T + b_out)). cc_gemm_body is an f32 CUDA-core GEMM
+// (f32 sums of products of f32 or widened bf16 values: no TF32) whose block
+// owns a row tile and a narrow column slice; 16-byte cp.async copies bring
+// the next 256-byte-deep k-slab of both operands while the current one is
+// read (SlabCopy). The tile (64 x
+// 64, 64 x 16 or 16 x 16) is the largest that still gives every SM of the
+// card a block (cc_tile): at R = 64 the q|k|v product runs 144 blocks of 16
+// columns and the out-projection 192 of 16 x 16, each weight byte read by
+// one (four) blocks; at R = 4096, 64 x 64 tiles.
+//
 // The other instantiations keep the first design: f32, and bf16 shapes the
 // 16-wide tiles do not divide, on the CUDA cores in f32 (gemm_nt: bf16
 // operands widened on load, so products are exact and sums f32 either
-// way, weights staged in 16-deep k-tiles); ln_mlp at 384 < C <= 768
-// (WideTile, 32 rows) and the attention half in bf16 on wmma 16x16x16
-// (gemm_tc: weight fragments straight from global memory, products into a
-// shared f32 tile that is added to the registers).
+// way, weights staged in 16-deep k-tiles).
 // Shared memory peaks at 201,216 bytes per block (ring path, C = 384,
 // D = 64, L = 64), inside the 232,448 a Hopper block may take.
-//
-// The attention half (attn_*_body) takes C up to 768 and heads up to 128
-// wide, where a C-wide f32 register tile no longer fits. It runs as three
-// kernels over tiles of 16, 32 or 64 rows of whole tracks: the LayerNorm
-// writes the normalized rows (rounded to the working dtype) to a scratch
-// tile in global memory (L2-resident); one block per (row tile, head)
-// computes that head's q|k|v and attention into a second scratch tile; one
-// block per (row tile, 128-column chunk) runs the out-projection, adds the
-// f32 normalized residual recomputed from x and the row statistics, and
-// writes the output. So the camera trunk (R = 64: four 16-row tiles) runs
-// 4 x 8 and 4 x 6 blocks instead of four blocks walking every head.
 //
 // Dtype contract (fused_mlp.py:58-137): LN statistics, every accumulation,
 // softmax and x1 are f32; the normalized input, q/k/v, the probabilities,
 // the per-head outputs and the GELU output are rounded to the working dtype.
 //
-// Apart from the wmma calls and the ring path's cp.async, ldmatrix and
-// mma.sync the code uses only threadIdx/blockIdx, __syncthreads, shared and
-// global memory (no warp shuffles: row statistics meet in shared memory),
-// so host_emu.h, which emulates those calls too, runs it on the CPU for
-// testing.
+// Apart from cp.async, ldmatrix and mma.sync the code uses only
+// threadIdx/blockIdx, __syncthreads, shared and global memory (no warp
+// shuffles: row statistics meet in shared memory), so host_emu.h, which
+// emulates those three calls too, runs it on the CPU for testing.
 #pragma once
 
 #ifdef __CUDACC__
 #include <cuda_bf16.h>
-#include <mma.h>
 #endif
 
 namespace vf {
@@ -90,8 +110,6 @@ constexpr int kMaxD = 64;            // widest head of the block kernel
 constexpr int kNJD = kMaxD / 16;
 constexpr int kMaxL = 64;            // longest attention group (rows/track)
 constexpr int kAttnMaxD = 128;       // widest head of the attention half
-constexpr int kAttnNJQ = 3 * kAttnMaxD / 16;  // q|k|v columns per thread
-constexpr int kAttnNC = 128;         // out-projection column chunk
 
 // A block's row tile and the register tile holding its residual stream:
 // thread (ty, tx) of the 16 x 16 grid owns rows ty + 16 i (i < RI) and
@@ -104,41 +122,34 @@ struct Tile {
   static constexpr int NJ = MAXC_ / 16;
 };
 using NarrowTile = Tile<64, kMaxC>;     // block kernel; ln_mlp at C <= 384
-using WideTile = Tile<32, kMaxWideC>;   // ln_mlp at 384 < C <= 768
+using WideTile = Tile<32, kMaxWideC>;   // ln_mlp at 384 < C <= 768, CUDA cores
 
 // ---------------------------------------------------------------- host side
 
-// shared-memory regions start on 128-byte boundaries (wmma needs 32)
+// shared-memory regions start on 128-byte boundaries
 __host__ __device__ inline size_t align_up(size_t n) {
   return (n + 127) & ~size_t(127);
 }
 
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
 // Whether the tensor-core path takes these shapes: bf16, and every
-// product's dimensions multiples of the 16-wide wmma tile.
+// product's dimensions multiples of the 16-wide mma tile.
 __host__ __device__ inline bool use_tc(int tsize, int C, int D, int M) {
   return tsize == 2 && C % 16 == 0 && D % 16 == 0 && M % 16 == 0;
 }
 
-__host__ __device__ inline int a_stride(int C, int tsize, bool tc) {
-  // pad the A-operand rows off a multiple of 32 banks; the tensor-core
-  // path keeps the stride a multiple of 8 elements (wmma's ldm)
-  return tc ? C + 8 : C + (tsize == 2 ? 2 : 1);
+__host__ __device__ inline int a_stride(int C, int tsize) {
+  // pad the A-operand rows off a multiple of 32 banks
+  return C + (tsize == 2 ? 2 : 1);
 }
 
-// f32 tile the tensor-core products land in: BM x max(C, 3D, kMC)
-__host__ __device__ inline int y_width(int C, int D) {
-  int w = C > 3 * D ? C : 3 * D;
-  return w > kMC ? w : kMC;
-}
-
-__host__ __device__ inline size_t common_smem(int BM, int C, int D, int tsize,
-                                              bool tc) {
+__host__ __device__ inline size_t common_smem(int BM, int C, int tsize) {
   const int bs_width = C > kMC ? C : kMC;
-  return align_up(size_t(BM) * a_stride(C, tsize, tc) * tsize)  // A
-         + (tc ? align_up(size_t(BM) * y_width(C, D) * 4)        // y tile
-               : align_up(size_t(kBK) * bs_width * 4))           // W tile
-         + align_up(size_t(BM) * 2 * 4)                          // stats
-         + align_up(size_t(BM) * 16 * 4);                        // partials
+  return align_up(size_t(BM) * a_stride(C, tsize) * tsize)  // A
+         + align_up(size_t(kBK) * bs_width * 4)              // W tile
+         + align_up(size_t(BM) * 2 * 4)                      // stats
+         + align_up(size_t(BM) * 16 * 4);                    // partials
 }
 
 __host__ __device__ inline size_t mlp_scratch(int BM, int tsize) {
@@ -197,17 +208,74 @@ __host__ __device__ inline size_t ring_mlp_scratch() {
   return align_up(size_t(NarrowTile::BM) * (kRC + kPad) * 2);
 }
 
+// The tensor-core GEMM of the wide MLP path (tc_gemm_body): 128 x 128
+// output tiles, kGStages stages of 64-deep slabs of both operands, two
+// blocks per SM.
+constexpr int kGM = 128;               // rows of a tile
+constexpr int kGN = 128;               // columns of a tile
+constexpr int kGK = 64;                // k-depth of a slab
+constexpr int kGStages = 3;            // slabs in the ring
+constexpr int kGBlocksPerSM = 2;       // the kernel's __launch_bounds__
+constexpr int kGLd = kGK + kPad;       // padded slab row, bf16 elements
+constexpr int kGNT = kGN / 32;         // n8 column tiles of a warp (4 x 2)
+
+__host__ __device__ inline size_t tc_gemm_smem_bytes() {
+  return size_t(kGStages) * (kGM + kGN) * kGLd * 2;
+}
+
+// Whether fused_ln_mlp runs as the wide path's three kernels (bf16 on the
+// tensor cores at 384 < C <= 768); 1 kernel otherwise.
+inline bool wide_mlp(int tsize, int C, int M) {
+  return use_tc(tsize, C, 16, M) && C > kMaxC;
+}
+
+inline int ln_mlp_kernels(int tsize, int C, int M) {
+  return wide_mlp(tsize, C, M) ? 3 : 1;
+}
+
+// The wide path's scratch, one array: xn (R, C), then h (R, M), bf16.
+inline size_t wide_mlp_scratch_bytes(int tsize, int R, int C, int M) {
+  return wide_mlp(tsize, C, M) ? size_t(R) * (C + M) * 2 : 0;
+}
+
+// The LayerNorm pass (ln_rows_body): one warp per row, its partial sums
+// meeting in shared memory.
+constexpr int kLnRows = kWarps;
+
+inline size_t ln_rows_smem_bytes() { return size_t(2) * kThreads * 4; }
+
+// The CUDA-core GEMM of the attention half (cc_gemm_body): RT x CT outputs
+// per thread of the 16 x 16 grid, so a 16 RT x 16 CT tile per block; a ring
+// of two 256-byte-deep slabs of both operands, rows padded by 16 bytes
+// (deeper rings measured no faster, and slower at R = 4096 where the
+// smaller carve fits more blocks per SM: tools/ablate_camera.py).
+constexpr int kCStages = 2;
+constexpr int kCSlabBytes = 256;
+constexpr int kCLdBytes = kCSlabBytes + 16;
+
+__host__ __device__ inline size_t cc_gemm_smem_bytes(int rt, int ct) {
+  return size_t(kCStages) * 16 * (rt + ct) * kCLdBytes;
+}
+
+// The tile of an (R x N) cc_gemm_body product, as 10 RT + CT: the largest
+// of 64 x 64, 64 x 16 and 16 x 16 that still gives each of the card's
+// `sms` SMs a block (two for 64 x 64).
+inline int cc_tile(int R, int N, int sms) {
+  if (long(cdiv(R, 64)) * cdiv(N, 64) >= 2L * sms) return 44;
+  if (long(cdiv(R, 64)) * cdiv(N, 16) >= sms) return 41;
+  return 11;
+}
+
 // Rows of one ln_mlp block: the 64-row tile up to C = 384, else 32 rows.
 inline int ln_mlp_rows(int C) {
   return C <= kMaxC ? NarrowTile::BM : WideTile::BM;
 }
 
 inline size_t ln_mlp_smem_bytes(int C, int M, int tsize) {
-  if (use_tc(tsize, C, 16, M) && C <= kMaxC)
-    return ring_common(C, 0) + ring_mlp_scratch();
+  if (wide_mlp(tsize, C, M)) return tc_gemm_smem_bytes();
+  if (use_tc(tsize, C, 16, M)) return ring_common(C, 0) + ring_mlp_scratch();
   const int BM = ln_mlp_rows(C);
-  return common_smem(BM, C, 0, tsize, use_tc(tsize, C, 16, M))
-         + mlp_scratch(BM, tsize);
+  return common_smem(BM, C, tsize) + mlp_scratch(BM, tsize);
 }
 
 inline size_t block_smem_bytes(int C, int H, int L, int M, int tsize) {
@@ -218,7 +286,7 @@ inline size_t block_smem_bytes(int C, int H, int L, int M, int tsize) {
   }
   const int BM = NarrowTile::BM;
   const size_t a = attn_scratch(BM, D, L, tsize), m = mlp_scratch(BM, tsize);
-  return common_smem(BM, C, D, tsize, false) + (a > m ? a : m);
+  return common_smem(BM, C, tsize) + (a > m ? a : m);
 }
 
 // Rows a block of a whole-track kernel owns out of a BM-row tile.
@@ -226,31 +294,46 @@ __host__ __device__ inline int block_rows(int L, int BM = NarrowTile::BM) {
   return (BM / L) * L;
 }
 
-// Row tile of the attention half's kernels: the smallest of 16, 32 and 64
-// rows that holds a whole track (L = 8: two tracks), so a short input
-// still spreads over many blocks.
+// Row tile of attn_core_body: the smallest of 16, 32 and 64 rows that
+// holds a whole track (L = 8: two tracks), so a short input still spreads
+// over many blocks.
 __host__ __device__ inline int attn_tile_rows(int L) {
   return L <= 16 ? 16 : L <= 32 ? 32 : 64;
 }
 
-// Rows of each of the attention half's scratch arrays (xs, os): one
-// attn_tile_rows(L)-row tile per block of block_rows(L, BM) input rows.
-inline long attn_scratch_rows(int R, int L) {
-  const int BM = attn_tile_rows(L), br = block_rows(L, BM);
-  return long((R + br - 1) / br) * BM;
+// Shared memory of one attn_core_body block: one head's q|k|v, its scores
+// and its output.
+inline size_t attn_core_smem_bytes(int C, int H, int L, int tsize) {
+  const int D = C / H, BM = attn_tile_rows(L);
+  return align_up(size_t(BM) * 3 * D * tsize) + align_up(size_t(BM) * L * 4)
+         + align_up(size_t(BM) * D * tsize);
 }
 
-// Shared memory of one block of any of the attention half's kernels
-// (attn_carve): statistics, one head's q|k|v, its scores, and the
-// tensor-core product tile or the staged weight and A tiles.
+// The attention half's scratch, one array: xs (R, C), qkv (R, 3C) and os
+// (R, C) of the working dtype, then the f32 row statistics (R, 2). Every
+// part starts 32-byte aligned (C % 16 == 0).
+inline size_t attn_scratch_bytes(int R, int C, int tsize) {
+  return size_t(R) * C * tsize * 5 + size_t(R) * 8;
+}
+
+struct AttnScratch {
+  void* xs;
+  void* qkv;
+  void* os;
+  float* stats;
+};
+
+inline AttnScratch attn_scratch_carve(void* p, int R, int C, int tsize) {
+  unsigned char* b = static_cast<unsigned char*>(p);
+  const size_t part = size_t(R) * C * tsize;
+  return {b, b + part, b + 4 * part, reinterpret_cast<float*>(b + 5 * part)};
+}
+
+// The most shared memory any block of the attention half's kernels takes.
 inline size_t attn_smem_bytes(int C, int H, int L, int tsize) {
-  const int D = C / H, BM = attn_tile_rows(L);
-  const bool tc = use_tc(tsize, C, D, 16);
-  const int yw = 3 * D > kAttnNC ? 3 * D : kAttnNC;
-  return align_up(size_t(BM) * 2 * 4) + align_up(size_t(BM) * 16 * 4)
-         + align_up(size_t(BM) * 3 * D * tsize) + align_up(size_t(BM) * L * 4)
-         + (tc ? align_up(size_t(BM) * yw * 4)
-               : align_up(size_t(kBK) * yw * 4) + align_up(size_t(BM) * kBK * 4));
+  const size_t core = attn_core_smem_bytes(C, H, L, tsize);
+  const size_t gemm = cc_gemm_smem_bytes(4, 4);  // the largest tile
+  return core > gemm ? core : gemm;
 }
 
 // 0 when the kernels take these shapes, else a negative code naming the
@@ -363,41 +446,29 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
 #endif
 
 // CUDA-core product: acc[i][j] += sum_k A[r][k] * W[n][k] for
-// r = ty + 16 i, n = tx + 16 j: a (16 RI x K) tile (shared or global memory)
-// times the transpose of N rows of a row-major (out, in) weight in global
-// memory. W points at element [0][0] of the slice and ldw is its row stride;
-// with seg > 0, column n reads weight row (n / seg) * seg_stride + n % seg
-// (as gemm_tc). Bs stages kBK-deep tiles of W as f32, laid out [k][n]; with
-// STAGE_A (A in global memory) As stages the matching (16 RI x kBK) tile of
-// A, so the inner loop reads no global memory. Begins with a barrier, so
-// callers need none between writing A and calling.
-template <typename T, int RI, int NJ, bool STAGE_A = false>
+// r = ty + 16 i, n = tx + 16 j: a (16 RI x K) tile in shared memory times
+// the transpose of N rows of a row-major (out, in) weight in global
+// memory. W points at element [0][0] of the slice and ldw is its row
+// stride. Bs stages kBK-deep tiles of W as f32, laid out [k][n]. Begins
+// with a barrier, so callers need none between writing A and calling.
+template <typename T, int RI, int NJ>
 __device__ __forceinline__ void gemm_nt(float (&acc)[RI][NJ], const T* A,
                                         int lda, const T* __restrict__ W,
-                                        int ldw, int N, int K, float* Bs,
-                                        int seg = 0, int seg_stride = 0,
-                                        float* As = nullptr) {
+                                        int ldw, int N, int K, float* Bs) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   for (int k0 = 0; k0 < K; k0 += kBK) {
     const int kb = K - k0 < kBK ? K - k0 : kBK;
     __syncthreads();  // A is written and the previous tile is consumed
     for (int idx = tid; idx < N * kBK; idx += kThreads) {
       const int n = idx / kBK, kk = idx - n * kBK;
-      const int wr = seg ? (n / seg) * seg_stride + n % seg : n;
-      Bs[kk * N + n] = kk < kb ? to_f<T>(W[size_t(wr) * ldw + k0 + kk]) : 0.f;
+      Bs[kk * N + n] = kk < kb ? to_f<T>(W[size_t(n) * ldw + k0 + kk]) : 0.f;
     }
-    if constexpr (STAGE_A)
-      for (int idx = tid; idx < 16 * RI * kBK; idx += kThreads) {
-        const int r = idx / kBK, kk = idx - r * kBK;
-        As[idx] = kk < kb ? to_f<T>(A[size_t(r) * lda + k0 + kk]) : 0.f;
-      }
     __syncthreads();
     for (int kk = 0; kk < kb; ++kk) {
       float a[RI];
 #pragma unroll
       for (int i = 0; i < RI; ++i)
-        a[i] = STAGE_A ? As[(ty + 16 * i) * kBK + kk]
-                       : to_f<T>(A[size_t(ty + 16 * i) * lda + k0 + kk]);
+        a[i] = to_f<T>(A[size_t(ty + 16 * i) * lda + k0 + kk]);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int n = tx + 16 * j;
@@ -409,65 +480,6 @@ __device__ __forceinline__ void gemm_nt(float (&acc)[RI][NJ], const T* A,
       }
     }
   }
-}
-
-// wmma tensor-core product into shared memory, for the instantiations off
-// the ring path (ln_mlp's WideTile and the attention half in bf16):
-//   Y[r][n] = sum_k A[r][k] * W[row(n)][k],  r < BM, n < N,
-// Y f32 row-major with stride ldy, A bf16 (shared or global memory,
-// lda % 8 == 0), W bf16 row-major (out, in) in global memory with row stride
-// ldw. Column n reads weight row (n / seg) * seg_stride + n % seg, so one
-// call can gather q|k|v rows of one head (seg = D, seg_stride = C); seg = N
-// for a plain slice. N, K and seg are multiples of 16; every fragment origin
-// is 32-byte aligned. Each warp owns 32 x 16 output tiles (16 x 16 when
-// BM = 16). Begins and ends with a barrier.
-template <typename T, int BM>
-__device__ __forceinline__ void gemm_tc(float* Y, int ldy, const T* A,
-                                        int lda, const T* __restrict__ W,
-                                        int ldw, int N, int K, int seg,
-                                        int seg_stride) {
-  using namespace nvcuda;
-  constexpr int RT = BM >= 32 ? 2 : 1;  // 16-row tiles per warp task
-  constexpr int NRT = BM / (16 * RT);   // row groups
-  const int warp = threadIdx.x / 32;
-  __syncthreads();  // A is written and Y's previous contents consumed
-  for (int t = warp; t < NRT * (N / 16); t += kWarps) {
-    const int i0 = (t % NRT) * RT;  // first of the task's 16-row tiles
-    const int n0 = (t / NRT) * 16;
-    const T* Wt = W + size_t((n0 / seg) * seg_stride + n0 % seg) * ldw;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i) wmma::fill_fragment(c[i], 0.0f);
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> b;
-      wmma::load_matrix_sync(b, Wt + k, ldw);
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::load_matrix_sync(a, A + size_t(16 * (i0 + i)) * lda + k, lda);
-        wmma::mma_sync(c[i], a, b, c[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-      wmma::store_matrix_sync(Y + (16 * (i0 + i)) * ldy + n0, c[i], ldy,
-                              wmma::mem_row_major);
-  }
-  __syncthreads();
-}
-
-// acc += Y for the thread's slice of a BM x C f32 tile
-template <class TL>
-__device__ __forceinline__ void add_tile(float (&acc)[TL::RI][TL::NJ],
-                                         const float* Y, int ldy, int C) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < TL::RI; ++i)
-#pragma unroll
-    for (int j = 0; j < TL::NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < C) acc[i][j] += Y[(ty + 16 * i) * ldy + c];
-    }
 }
 
 // Row statistics of a BM-row tile: given each thread's partial sums part[i]
@@ -572,24 +584,22 @@ __device__ __forceinline__ void store_tile(const float (&v)[TL::RI][TL::NJ],
 
 struct Smem {
   void* xa;       // [BM][lda] A operand (normalized activations)
-  float* Y;       // tensor cores: [BM][y_width] product tile;
-                  // CUDA cores: [kBK][max(C, kMC)] staged weight tile
+  float* Y;       // [kBK][max(C, kMC)] staged weight tile
   float* stat;    // [BM][2]
   float* red;     // [BM][16]
   unsigned char* scratch;
 };
 
-template <typename T, bool TC, class TL>
-__device__ __forceinline__ Smem carve(unsigned char* smem, int C, int D) {
+template <typename T, class TL>
+__device__ __forceinline__ Smem carve(unsigned char* smem, int C) {
   const int tsize = sizeof(T);
   const int bs_width = C > kMC ? C : kMC;
   Smem s;
   unsigned char* p = smem;
   s.xa = p;
-  p += align_up(size_t(TL::BM) * a_stride(C, tsize, TC) * tsize);
+  p += align_up(size_t(TL::BM) * a_stride(C, tsize) * tsize);
   s.Y = reinterpret_cast<float*>(p);
-  p += TC ? align_up(size_t(TL::BM) * y_width(C, D) * 4)
-          : align_up(size_t(kBK) * bs_width * 4);
+  p += align_up(size_t(kBK) * bs_width * 4);
   s.stat = reinterpret_cast<float*>(p);
   p += align_up(size_t(TL::BM) * 2 * 4);
   s.red = reinterpret_cast<float*>(p);
@@ -598,10 +608,10 @@ __device__ __forceinline__ Smem carve(unsigned char* smem, int C, int D) {
   return s;
 }
 
-// The MLP half shared by both kernels: acc holds the residual base
-// (f32, one row per tile row); on return it holds
+// The MLP half shared by both kernels on the CUDA cores: acc holds the
+// residual base (f32, one row per tile row); on return it holds
 // base + fc2(gelu(fc1(LN(base)))) without the fc2 bias.
-template <typename T, bool TC, class TL>
+template <typename T, class TL>
 __device__ __forceinline__ void mlp_half(float (&acc)[TL::RI][TL::NJ], int C,
                                          int M, const T* __restrict__ w1,
                                          const T* __restrict__ b1,
@@ -609,40 +619,28 @@ __device__ __forceinline__ void mlp_half(float (&acc)[TL::RI][TL::NJ], int C,
                                          const Smem& s) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   T* xa = static_cast<T*>(s.xa);
-  const int lda = a_stride(C, sizeof(T), TC);
+  const int lda = a_stride(C, sizeof(T));
   T* hb = reinterpret_cast<T*>(s.scratch);  // [BM][kMC]
   layer_norm_tile<T, TL>(acc, C, xa, lda, s.stat, s.red);
   for (int m0 = 0; m0 < M; m0 += kMC) {
     const int mc = M - m0 < kMC ? M - m0 : kMC;
-    if constexpr (TC) {
-      gemm_tc<T, TL::BM>(s.Y, kMC, xa, lda, w1 + size_t(m0) * C, C, mc, C,
-                         mc, 0);
-      for (int idx = tid; idx < TL::BM * mc; idx += kThreads) {
-        const int r = idx / mc, n = idx - r * mc;
-        hb[r * kMC + n] =
-            from_f<T>(gelu_erf(s.Y[r * kMC + n] + to_f<T>(b1[m0 + n])));
+    float h[TL::RI][kMC / 16];
+#pragma unroll
+    for (int i = 0; i < TL::RI; ++i)
+#pragma unroll
+      for (int j = 0; j < kMC / 16; ++j) h[i][j] = 0.f;
+    gemm_nt<T, TL::RI, kMC / 16>(h, xa, lda, w1 + size_t(m0) * C, C, mc, C,
+                                 s.Y);
+#pragma unroll
+    for (int i = 0; i < TL::RI; ++i)
+#pragma unroll
+      for (int j = 0; j < kMC / 16; ++j) {
+        const int n = tx + 16 * j;
+        if (n < mc)
+          hb[(ty + 16 * i) * kMC + n] =
+              from_f<T>(gelu_erf(h[i][j] + to_f<T>(b1[m0 + n])));
       }
-      gemm_tc<T, TL::BM>(s.Y, C, hb, kMC, w2 + m0, M, C, mc, C, 0);
-      add_tile<TL>(acc, s.Y, C, C);
-    } else {
-      float h[TL::RI][kMC / 16];
-#pragma unroll
-      for (int i = 0; i < TL::RI; ++i)
-#pragma unroll
-        for (int j = 0; j < kMC / 16; ++j) h[i][j] = 0.f;
-      gemm_nt<T, TL::RI, kMC / 16>(h, xa, lda, w1 + size_t(m0) * C, C, mc, C,
-                                   s.Y);
-#pragma unroll
-      for (int i = 0; i < TL::RI; ++i)
-#pragma unroll
-        for (int j = 0; j < kMC / 16; ++j) {
-          const int n = tx + 16 * j;
-          if (n < mc)
-            hb[(ty + 16 * i) * kMC + n] =
-                from_f<T>(gelu_erf(h[i][j] + to_f<T>(b1[m0 + n])));
-        }
-      gemm_nt<T, TL::RI, TL::NJ>(acc, hb, kMC, w2 + m0, M, C, mc, s.Y);
-    }
+    gemm_nt<T, TL::RI, TL::NJ>(acc, hb, kMC, w2 + m0, M, C, mc, s.Y);
   }
 }
 
@@ -695,49 +693,32 @@ __device__ __forceinline__ void head_attention(const T* qkv, float* sc,
 }
 
 // q | k | v of head h for the BM rows of A (lda) into qkv [BM][3D], rounded
-// to T. Y: the tensor-core product tile or the staged weight tile. The
-// CUDA-core path runs NP products of 3D / NP columns, NJ column slots per
-// thread: three (q, k, v) in the register-tight block kernel, one in the
-// attention half, whose A lies in global memory and is staged through As.
-template <typename T, bool TC, int BM, int NP, int NJ>
+// to T, on the CUDA cores as three products of D columns (kNJD column
+// slots per thread); Y is the staged weight tile.
+template <typename T, int BM>
 __device__ __forceinline__ void head_qkv(T* qkv, const T* A, int lda,
                                          const T* __restrict__ w_in,
                                          const T* __restrict__ b_in, int C,
-                                         int D, int h, float* Y,
-                                         float* As = nullptr) {
+                                         int D, int h, float* Y) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  if constexpr (TC) {
-    gemm_tc<T, BM>(Y, 3 * D, A, lda, w_in + size_t(h) * D * C, C, 3 * D, C,
-                   D, C);
-    for (int idx = tid; idx < BM * 3 * D; idx += kThreads) {
-      const int n = idx % (3 * D);
-      const int wrow = (n / D) * C + h * D + n % D;
-      qkv[idx] = from_f<T>(Y[idx] + to_f<T>(b_in[wrow]));
-    }
-  } else {
-    const int N = 3 * D / NP;
-    for (int part = 0; part < NP; ++part) {
-      float t[BM / 16][NJ];
+  for (int part = 0; part < 3; ++part) {
+    float t[BM / 16][kNJD];
 #pragma unroll
-      for (int i = 0; i < BM / 16; ++i)
+    for (int i = 0; i < BM / 16; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) t[i][j] = 0.f;
-      // one product gathers the q|k|v rows of the head (as gemm_tc); three
-      // read plain D-row slices
-      const int wrow = part * C + h * D;
-      gemm_nt<T, BM / 16, NJ, NP == 1>(t, A, lda, w_in + size_t(wrow) * C, C,
-                                       N, C, Y, NP == 1 ? D : 0, C, As);
+      for (int j = 0; j < kNJD; ++j) t[i][j] = 0.f;
+    const int wrow = part * C + h * D;
+    gemm_nt<T, BM / 16, kNJD>(t, A, lda, w_in + size_t(wrow) * C, C, D, C,
+                              Y);
 #pragma unroll
-      for (int i = 0; i < BM / 16; ++i)
+    for (int i = 0; i < BM / 16; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int n = tx + 16 * j;
-          const int brow = NP == 1 ? (n / D) * C + h * D + n % D : wrow + n;
-          if (n < N)
-            qkv[(ty + 16 * i) * 3 * D + part * D + n] =
-                from_f<T>(t[i][j] + to_f<T>(b_in[brow]));
-        }
-    }
+      for (int j = 0; j < kNJD; ++j) {
+        const int n = tx + 16 * j;
+        if (n < D)
+          qkv[(ty + 16 * i) * 3 * D + part * D + n] =
+              from_f<T>(t[i][j] + to_f<T>(b_in[wrow + n]));
+      }
   }
   __syncthreads();
 }
@@ -823,8 +804,6 @@ struct WeightStream {
     cp_async_commit();
   }
 };
-
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // The stream of a block kernel (H heads of width D) or, with H = D = 0, of
 // ln_mlp. Every hidden chunk has the same slab count, so the last, shorter
@@ -924,27 +903,59 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
   }
 }
 
-// head_attention for the ring path (bf16, D % 16 == 0): the same sums in
-// the same order, with q, k and v read 8 values per 16-byte load, so the
-// loops are not held up by one shared-memory load per product. Each P V
-// item is 8 output columns of one row.
+// 16 bytes of T as f32 values, and back (rounded to T)
+template <typename T>
+__device__ __forceinline__ void load_pack(const T* p,
+                                          float (&f)[16 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 4) {
+    const Pack8 u = *reinterpret_cast<const Pack8*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(u.w[i]);
+  } else {
+    load8(p, f);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_pack(T* p,
+                                           const float (&f)[16 / sizeof(T)]) {
+  Pack8 u;
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) u.w[i] = __float_as_uint(f[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      u.w[i] = unsigned(__bfloat16_as_ushort(from_f<T>(f[2 * i])))
+               | unsigned(__bfloat16_as_ushort(from_f<T>(f[2 * i + 1])))
+                     << 16;
+  }
+  *reinterpret_cast<Pack8*>(p) = u;
+}
+
+// head_attention with 16-byte loads, for the ring path (bf16, D % 16 == 0)
+// and the attention core (D % 8 == 0): the same sums in the same order,
+// with q, k and v read V = 16 / sizeof(T) values per load, so the loops
+// are not held up by one shared-memory load per product. Each P V item is
+// V output columns of one row.
 template <typename T, int BM>
 __device__ __forceinline__ void ring_head_attention(const T* qkv, float* sc,
                                                     T* o, int ldo, int rows,
                                                     int L, int D,
                                                     float scale) {
+  constexpr int V = 16 / sizeof(T);
   const int tid = threadIdx.x, ld = 3 * D;
   for (int idx = tid; idx < rows * L; idx += kThreads) {
     const int r = idx / L, j = idx - r * L;
     const T* q = qkv + r * ld;
     const T* k = qkv + ((r / L) * L + j) * ld + D;
     float d = 0.f;
-    for (int e0 = 0; e0 < D; e0 += 8) {
-      float qv[8], kv[8];
-      load8(q + e0, qv);
-      load8(k + e0, kv);
+    for (int e0 = 0; e0 < D; e0 += V) {
+      float qv[V], kv[V];
+      load_pack<T>(q + e0, qv);
+      load_pack<T>(k + e0, kv);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) d = fmaf(qv[e], kv[e], d);
+      for (int e = 0; e < V; ++e) d = fmaf(qv[e], kv[e], d);
     }
     sc[r * L + j] = d * scale;
   }
@@ -962,22 +973,24 @@ __device__ __forceinline__ void ring_head_attention(const T* qkv, float* sc,
     for (int j = 0; j < L; ++j) p[j] = round_t<T>(p[j] * inv);
   }
   __syncthreads();
-  const int groups = D / 8;
+  const int groups = D / V;
   for (int idx = tid; idx < BM * groups; idx += kThreads) {
-    const int r = idx / groups, e0 = (idx - r * groups) * 8;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    const int r = idx / groups, e0 = (idx - r * groups) * V;
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = 0.f;
     if (r < rows) {
       const int base = (r / L) * L;
       const float* p = sc + r * L;
       for (int j = 0; j < L; ++j) {
-        float v[8];
-        load8(qkv + (base + j) * ld + 2 * D + e0, v);
+        float v[V];
+        load_pack<T>(qkv + (base + j) * ld + 2 * D + e0, v);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] = fmaf(p[j], v[e], acc[e]);
+        for (int e = 0; e < V; ++e) acc[e] = fmaf(p[j], v[e], acc[e]);
       }
     }
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o[r * ldo + e0 + e] = from_f<T>(acc[e]);
+    for (int e = 0; e < V; ++e) o[r * ldo + e0 + e] = from_f<T>(acc[e]);
   }
 }
 
@@ -1283,11 +1296,11 @@ __device__ __forceinline__ void block_body_cc(
   constexpr int BM = TL::BM;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int D = C / H;
-  const Smem s = carve<T, false, TL>(smem, C, D);
+  const Smem s = carve<T, TL>(smem, C);
   const int BMr = block_rows(L);
   const int row0 = blockIdx.x * BMr;
   const int rows = R - row0 < BMr ? R - row0 : BMr;
-  const int lda = a_stride(C, sizeof(T), false);
+  const int lda = a_stride(C, sizeof(T));
   T* xa = static_cast<T*>(s.xa);
   T* qkv = reinterpret_cast<T*>(s.scratch);  // [BM][3D]
   float* sc = reinterpret_cast<float*>(
@@ -1313,13 +1326,13 @@ __device__ __forceinline__ void block_body_cc(
   }
 
   for (int h = 0; h < H; ++h) {
-    head_qkv<T, false, BM, 3, kNJD>(qkv, xa, lda, w_in, b_in, C, D, h, s.Y);
+    head_qkv<T, BM>(qkv, xa, lda, w_in, b_in, C, D, h, s.Y);
     head_attention<T, BM>(qkv, sc, oh, D, rows, L, D, scale);
     // x1 += o_h @ w_out[:, hD:(h+1)D]^T
     gemm_nt<T, TL::RI, TL::NJ>(acc, oh, D, w_out + h * D, C, C, D, s.Y);
   }
 
-  mlp_half<T, false, TL>(acc, C, M, w1, b1, w2, s);
+  mlp_half<T, TL>(acc, C, M, w1, b1, w2, s);
   store_tile<T, TL>(acc, b2, out, row0, rows, C);
 }
 
@@ -1348,198 +1361,370 @@ __device__ __forceinline__ void block_body(
 // fused_ln_mlp: out = x + fc2(gelu(fc1(LN(x)))) on rows of (R, C), TL::BM
 // rows per block. w1 (M, C), b1 (M), w2 (C, M), b2 (C): torch Linear
 // layout (out, in). The 64-row tensor-core instantiation takes the ring
-// path.
+// path; the CUDA-core one keeps the whole-row tile. (bf16 at C > 384 on
+// the tensor cores is the wide path's three kernels instead.)
 template <typename T, bool TC, class TL>
 __device__ __forceinline__ void ln_mlp_body(
     const T* __restrict__ x, const T* __restrict__ w1,
     const T* __restrict__ b1, const T* __restrict__ w2,
     const T* __restrict__ b2, T* __restrict__ out, int R, int C, int M,
     unsigned char* smem) {
-  if constexpr (TC && TL::MAXC == kMaxC) {
+  if constexpr (TC) {
+    static_assert(TL::MAXC == kMaxC, "the ring path holds 64 x 384");
     ln_mlp_body_ring<T>(x, w1, b1, w2, b2, out, R, C, M, smem);
   } else {
-    const Smem s = carve<T, TC, TL>(smem, C, 0);
+    const Smem s = carve<T, TL>(smem, C);
     const int row0 = blockIdx.x * TL::BM;
     const int rows = R - row0 < TL::BM ? R - row0 : TL::BM;
     float acc[TL::RI][TL::NJ];
     load_tile<T, TL>(acc, x, row0, rows, C);
-    mlp_half<T, TC, TL>(acc, C, M, w1, b1, w2, s);
+    mlp_half<T, TL>(acc, C, M, w1, b1, w2, s);
     store_tile<T, TL>(acc, b2, out, row0, rows, C);
   }
 }
 
+// ------------------------------------------- the wide MLP and attention paths
+//
+// Kernels that each run one step of the op over the whole input, meeting
+// in scratch arrays the wrapper allocates: the LayerNorm pass, the GEMMs
+// with their fused epilogues, and the attention core.
 
+// The LayerNorm pass: xn = LN(x) (no affine, eps 1e-6, two passes as
+// jnp.var) rounded to T, rows of (R, C); with stats, also the f32 mean and
+// rstd of row r in stats[2r], stats[2r + 1]. Warp w of block b takes row
+// kLnRows b + w, each lane the 16-byte packs lane, lane + 32, ... (24
+// values at most); the lanes' partial sums meet in shared memory. x and
+// xn 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void ln_rows_body(const T* __restrict__ x,
+                                             T* __restrict__ xn,
+                                             float* __restrict__ stats, int R,
+                                             int C, unsigned char* smem) {
+  constexpr int V = 16 / sizeof(T), P = kMaxWideC / (32 * V);
+  float* red = reinterpret_cast<float*>(smem);  // [2][kThreads]
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r = blockIdx.x * kLnRows + w;
+  const int np = r < R ? C / V : 0;  // packs this lane's row has
+  float v[P][V];
+  float s = 0.f;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int c = (lane + 32 * p) * V;
+    if (lane + 32 * p < np) {
+      load_pack<T>(x + size_t(r) * C + c, v[p]);
+#pragma unroll
+      for (int e = 0; e < V; ++e) s += v[p][e];
+    }
+  }
+  red[threadIdx.x] = s;
+  __syncthreads();
+  float mean = 0.f;
+  for (int i = 0; i < 32; ++i) mean += red[32 * w + i];
+  mean /= C;
+  s = 0.f;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    if (lane + 32 * p < np)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float d = v[p][e] - mean;
+        s += d * d;
+      }
+  red[kThreads + threadIdx.x] = s;
+  __syncthreads();
+  float var = 0.f;
+  for (int i = 0; i < 32; ++i) var += red[kThreads + 32 * w + i];
+  const float rstd = rsqrtf(var / C + 1e-6f);
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    if (lane + 32 * p < np) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[p][e] = (v[p][e] - mean) * rstd;
+      store_pack<T>(xn + size_t(r) * C + (lane + 32 * p) * V, v[p]);
+    }
+  if (stats && np && lane == 0) {
+    stats[2 * r] = mean;
+    stats[2 * r + 1] = rstd;
+  }
+}
 
-// fused_ln_attn on rows of (R, C), attention within each group of L
-// consecutive rows, in BM-row tiles of whole tracks ((BM / L) * L rows,
-// BM = attn_tile_rows(L)):
-//   xn = LN(x); out = xn + out_proj(MHA(xn)),
-// as three kernels, so a short input still spreads over the card: the
-// LayerNorm per row tile, then one block per (row tile, head), then one per
-// (row tile, kAttnNC-column chunk of the out-projection). Weights as
-// block_body. xs_all and os_all are scratch tiles in global memory (L2
-// resident), BM x C each in T per row tile: the normalized rows (the A
-// operand of the q|k|v products) and the concatenated head outputs (that of
-// the out-projection). The f32 residual is recomputed from x and the row
-// statistics, so no C-wide f32 tile is kept. All three share one carve of
-// shared memory (AttnSmem).
-struct AttnSmem {
-  float* stat;  // [BM][2] row mean, rstd
-  float* red;   // [BM][16] partial sums
-  void* qkv;    // [BM][3D] one head's q|k|v
-  float* sc;    // [BM][L] its scores
-  float* Y;     // tensor cores: product tile; CUDA cores: staged weights
-  float* As;    // CUDA cores: staged A tile
+// What a GEMM body does with its f32 sum y of output (r, c) before storing
+// it to out[r * ldo + c], rounded to T; v = y + bias[c]:
+//   kEpiBias: v;  kEpiGelu: gelu(v);  kEpiResid: res[r][c] + v;
+//   kEpiNormResid: (res[r][c] - mean_r) rstd_r + v (the normalized
+//   residual of the attention half, from the LayerNorm pass's statistics).
+// res has out's row stride.
+enum { kEpiBias, kEpiGelu, kEpiResid, kEpiNormResid };
+
+template <typename T>
+struct Epi {
+  const T* bias;
+  const T* res;
+  const float* stats;
+  T* out;
+  int ldo;
 };
 
-template <typename T, int BM>
-__device__ __forceinline__ AttnSmem attn_carve(unsigned char* p, int D,
-                                               int L) {
-  const int yw = 3 * D > kAttnNC ? 3 * D : kAttnNC;
-  AttnSmem s;
-  s.stat = reinterpret_cast<float*>(p);
-  p += align_up(size_t(BM) * 2 * 4);
-  s.red = reinterpret_cast<float*>(p);
-  p += align_up(size_t(BM) * 16 * 4);
-  s.qkv = p;
-  p += align_up(size_t(BM) * 3 * D * sizeof(T));
-  s.sc = reinterpret_cast<float*>(p);
-  p += align_up(size_t(BM) * L * 4);
-  s.Y = reinterpret_cast<float*>(p);
-  s.As = s.Y + align_up(size_t(kBK) * yw * 4) / 4;
-  return s;
-}
-
-// Rows [row0, row0 + rows) of the tile and the LayerNorm statistics of x's
-// rows there into s.stat (two passes over global memory; rows past the
-// block's tracks read as 0).
-template <typename T, int BM>
-__device__ __forceinline__ void attn_row_stats(const T* __restrict__ x,
-                                               int row0, int rows, int C,
-                                               const AttnSmem& s) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float part[BM / 16];
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i) {
-    const int r = ty + 16 * i;
-    float sum = 0.f;
-    if (r < rows)
-      for (int c = tx; c < C; c += 16)
-        sum += to_f<T>(x[size_t(row0 + r) * C + c]);
-    part[i] = sum;
-  }
-  row_reduce<BM>(part, C, s.stat, 0, s.red);
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i) {
-    const int r = ty + 16 * i;
-    const float mean = s.stat[2 * r];
-    float sum = 0.f;
-    for (int c = tx; c < C; c += 16) {
-      const float v = r < rows ? to_f<T>(x[size_t(row0 + r) * C + c]) : 0.f;
-      sum += (v - mean) * (v - mean);
-    }
-    part[i] = sum;
-  }
-  row_reduce<BM>(part, C, s.stat, 1, s.red);
-  if (tid < BM) s.stat[2 * tid + 1] = rsqrtf(s.stat[2 * tid + 1] + 1e-6f);
-  __syncthreads();
-}
-
-// Kernel 1 of fused_ln_attn, row tile blockIdx.x: the normalized rows,
-// rounded to T, into its scratch tile of xs_all.
-template <typename T, int BM>
-__device__ __forceinline__ void attn_ln_body(const T* __restrict__ x,
-                                             T* xs_all, int R, int C, int L,
-                                             int H, unsigned char* smem) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const AttnSmem s = attn_carve<T, BM>(smem, C / H, L);
-  const int BR = block_rows(L, BM);
-  const int row0 = blockIdx.x * BR;
-  const int rows = R - row0 < BR ? R - row0 : BR;
-  T* xs = xs_all + size_t(blockIdx.x) * BM * C;
-  attn_row_stats<T, BM>(x, row0, rows, C, s);
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i) {
-    const int r = ty + 16 * i;
-    const float mean = s.stat[2 * r], rstd = s.stat[2 * r + 1];
-    for (int c = tx; c < C; c += 16) {
-      const float v = r < rows ? to_f<T>(x[size_t(row0 + r) * C + c]) : 0.f;
-      xs[size_t(r) * C + c] = from_f<T>((v - mean) * rstd);
-    }
-  }
-}
-
-// Kernel 2, row tile blockIdx.x and head h = blockIdx.y: q|k|v of the head
-// from xs, attention within each track, the output into os[:, hD:(h+1)D].
-template <typename T, bool TC, int BM>
-__device__ __forceinline__ void attn_heads_body(
-    const T* __restrict__ w_in, const T* __restrict__ b_in, const T* xs_all,
-    T* os_all, int R, int C, int L, int H, unsigned char* smem) {
-  const int D = C / H, h = blockIdx.y;
-  const AttnSmem s = attn_carve<T, BM>(smem, D, L);
-  const int BR = block_rows(L, BM);
-  const int row0 = blockIdx.x * BR;
-  const int rows = R - row0 < BR ? R - row0 : BR;
-  const T* xs = xs_all + size_t(blockIdx.x) * BM * C;
-  T* os = os_all + size_t(blockIdx.x) * BM * C;
-  T* qkv = static_cast<T*>(s.qkv);
-  head_qkv<T, TC, BM, 1, kAttnNJQ>(qkv, xs, C, w_in, b_in, C, D, h, s.Y,
-                                   s.As);
-  head_attention<T, BM>(qkv, s.sc, os + h * D, C, rows, L, D,
-                        1.0f / sqrtf(float(D)));
-}
-
-// Kernel 3, row tile blockIdx.x and column chunk n0 = kAttnNC blockIdx.y of
-// the output: out = xn32 + (os @ w_out^T + b_out).
-template <typename T, bool TC, int BM>
-__device__ __forceinline__ void attn_out_body(
-    const T* __restrict__ x, const T* __restrict__ w_out,
-    const T* __restrict__ b_out, T* __restrict__ out, const T* os_all,
-    int R, int C, int L, int H, unsigned char* smem) {
-  constexpr int RI = BM / 16;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const AttnSmem s = attn_carve<T, BM>(smem, C / H, L);
-  const int BR = block_rows(L, BM);
-  const int row0 = blockIdx.x * BR;
-  const int rows = R - row0 < BR ? R - row0 : BR;
-  const T* os = os_all + size_t(blockIdx.x) * BM * C;
-  const int n0 = blockIdx.y * kAttnNC;
-  const int nc = C - n0 < kAttnNC ? C - n0 : kAttnNC;
-  attn_row_stats<T, BM>(x, row0, rows, C, s);
-  if constexpr (TC) {
-    gemm_tc<T, BM>(s.Y, kAttnNC, os, C, w_out + size_t(n0) * C, C, nc, C, nc,
-                   0);
-    for (int idx = tid; idx < rows * nc; idx += kThreads) {
-      const int r = idx / nc, n = idx - r * nc, c = n0 + n;
-      const float xn = (to_f<T>(x[size_t(row0 + r) * C + c]) - s.stat[2 * r])
-                       * s.stat[2 * r + 1];
-      out[size_t(row0 + r) * C + c] =
-          from_f<T>(xn + (s.Y[r * kAttnNC + n] + to_f<T>(b_out[c])));
-    }
+template <int KIND, typename T>
+__device__ __forceinline__ float epi_value(const Epi<T>& e, float y, int r,
+                                           int c) {
+  const float v = y + to_f<T>(e.bias[c]);
+  if constexpr (KIND == kEpiGelu) {
+    return gelu_erf(v);
+  } else if constexpr (KIND == kEpiResid) {
+    return to_f<T>(e.res[size_t(r) * e.ldo + c]) + v;
+  } else if constexpr (KIND == kEpiNormResid) {
+    return (to_f<T>(e.res[size_t(r) * e.ldo + c]) - e.stats[2 * r])
+               * e.stats[2 * r + 1] + v;
   } else {
-    float t[RI][kAttnNC / 16];
+    return v;
+  }
+}
+
+// The 16-byte cp.async copies that fill one stage of a GEMM block's ring:
+// RA rows of A, then RB rows of W, CPR 16-byte chunks deep, as padded rows
+// of LD elements. Thread t copies chunk t % CPR of rows t / CPR + p
+// kThreads / CPR; its source rows are found once, rows past R (N) clamped
+// to the last one (their results are not stored).
+template <typename T, int RA, int RB, int CPR, int LD>
+struct SlabCopy {
+  static constexpr int kStep = kThreads / CPR;
+  static constexpr int kPasses = (RA + RB) / kStep;
+  static_assert((RA + RB) % kStep == 0, "whole passes");
+  const T* src[kPasses];
+  int dst, c;
+
+  __device__ __forceinline__ SlabCopy(const T* A, int lda, int row0, int R,
+                                      const T* W, int ldw, int col0, int N) {
+    const int r0 = threadIdx.x / CPR;
+    c = (threadIdx.x % CPR) * int(16 / sizeof(T));
+    dst = r0 * LD + c;
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int p = 0; p < kPasses; ++p) {
+      const int row = r0 + p * kStep;
+      if (row < RA) {
+        const int gr = row0 + row < R ? row0 + row : R - 1;
+        src[p] = A + size_t(gr) * lda + c;
+      } else {
+        const int gn = col0 + row - RA < N ? col0 + row - RA : N - 1;
+        src[p] = W + size_t(gn) * ldw + c;
+      }
+    }
+  }
+
+  // k-columns [k0, k0 + kb) into `stage`
+  __device__ __forceinline__ void issue(T* stage, int k0, int kb) const {
+    if (c < kb) {
 #pragma unroll
-      for (int j = 0; j < kAttnNC / 16; ++j) t[i][j] = 0.f;
-    gemm_nt<T, RI, kAttnNC / 16, true>(t, os, C, w_out + size_t(n0) * C, C,
-                                       nc, C, s.Y, 0, 0, s.As);
+      for (int p = 0; p < kPasses; ++p)
+        cp_async_16(stage + dst + p * kStep * LD, src[p] + k0);
+    }
+    cp_async_commit();  // one group per slab, empty past the last (kb <= 0)
+  }
+};
+
+// Y = A W^T on the tensor cores, then the epilogue: A (R, K) bf16 with row
+// stride lda, W (N, K) bf16 (a torch Linear's (out, in) weight) with row
+// stride ldw; K, N, lda and ldw multiples of 8 and the arrays 16-byte
+// aligned. Block (blockIdx.x, blockIdx.y) computes the 128 x 128 tile of
+// columns kGN blockIdx.x and rows kGM blockIdx.y; warp w the 64 x 32
+// sub-tile (w / 4, w % 4): 4 x 4 m16n8 accumulators, in registers until
+// the epilogue. Slab s (32 k-columns of the tile's 128 A rows and 128 W
+// rows, padded rows) goes to stage s % kGStages by 16-byte cp.async,
+// kGStages - 1 slabs ahead of the one the tensor cores read, one barrier
+// per slab. Rows past R (columns past N) read row R - 1 (N - 1) and are
+// not stored.
+template <int KIND>
+__device__ __forceinline__ void tc_gemm_body(
+    const __nv_bfloat16* __restrict__ A, int lda,
+    const __nv_bfloat16* __restrict__ W, int ldw, int R, int N, int K,
+    const Epi<__nv_bfloat16>& epi, unsigned char* smem) {
+  using bf = __nv_bfloat16;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int wm = w >> 2, wn = w & 3;
+  const int row0 = blockIdx.y * kGM, col0 = blockIdx.x * kGN;
+  bf* ring = reinterpret_cast<bf*>(smem);  // [kGStages][kGM + kGN][kGLd]
+  constexpr int kStage = (kGM + kGN) * kGLd;
+  const int nk = cdiv(K, kGK);
+  const SlabCopy<bf, kGM, kGN, kGK / 8, kGLd> copy(A, lda, row0, R, W, ldw,
+                                                   col0, N);
+  auto issue = [&](int s) {
+    copy.issue(ring + (s % kGStages) * kStage, s * kGK,
+               K - s * kGK < kGK ? K - s * kGK : kGK);
+  };
+
+  float acc[4][kGNT][4];
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = ty + 16 * i;
-      if (r >= rows) continue;
-      const float mean = s.stat[2 * r], rstd = s.stat[2 * r + 1];
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < kAttnNC / 16; ++j) {
-        const int n = tx + 16 * j, c = n0 + n;
-        if (n < nc) {
-          const float xn = (to_f<T>(x[size_t(row0 + r) * C + c]) - mean)
-                           * rstd;
-          out[size_t(row0 + r) * C + c] =
-              from_f<T>(xn + (t[i][j] + to_f<T>(b_out[c])));
+    for (int j = 0; j < kGNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int s = 0; s < kGStages - 1; ++s) issue(s);
+  for (int s = 0; s < nk; ++s) {
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();  // slab s landed for all; slab s - 1 consumed
+    issue(s + kGStages - 1);
+    const bf* a = ring + (s % kGStages) * kStage + (64 * wm) * kGLd;
+    const bf* b = ring + (s % kGStages) * kStage
+                  + (kGM + 8 * kGNT * wn) * kGLd;
+    const int kb = K - s * kGK < kGK ? K - s * kGK : kGK;
+#pragma unroll
+    for (int kk = 0; kk < kGK; kk += 16) {
+      if (kk >= kb) break;  // a short last slab
+      // A: matrices (rows +0/+8) x (k +0/+8); B: (k +0/+8) x (tiles j, j+1)
+      unsigned fa[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldsm_x4(fa[i], a + (16 * i + (lane & 15)) * kGLd + kk
+                           + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < kGNT; j += 2) {
+        unsigned fb[4];
+        ldsm_x4(fb, b + (8 * j + (lane & 7) + (lane >> 4) * 8) * kGLd + kk
+                        + ((lane >> 3) & 1) * 8);
+        const unsigned lo[2] = {fb[0], fb[1]}, hi[2] = {fb[2], fb[3]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma_16816(acc[i][j], fa[i], lo);
+          mma_16816(acc[i][j + 1], fa[i], hi);
         }
       }
     }
+  }
+  cp_async_wait<0>();
+  // element e of acc[i][j]: row 16 i + g + 8 (e / 2), column 8 j + 2 t + e % 2
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kGNT; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row0 + 64 * wm + 16 * i + (lane >> 2) + 8 * hh;
+        const int c = col0 + 8 * kGNT * wn + 8 * j + 2 * (lane & 3);
+        if (r < R && c < N) {  // N even: c + 1 < N too
+          const bf lo = from_f<bf>(epi_value<KIND>(epi, acc[i][j][2 * hh], r,
+                                                   c));
+          const bf hi = from_f<bf>(epi_value<KIND>(epi, acc[i][j][2 * hh + 1],
+                                                   r, c + 1));
+          *reinterpret_cast<unsigned*>(epi.out + size_t(r) * epi.ldo + c) =
+              unsigned(__bfloat16_as_ushort(lo))
+              | unsigned(__bfloat16_as_ushort(hi)) << 16;
+        }
+      }
+}
+
+// Y = A W^T on the CUDA cores in f32, then the epilogue: A (R, K) and W (N,
+// K) of T, row strides lda and ldw, K, lda, ldw multiples of 16 bytes /
+// sizeof(T), arrays 16-byte aligned. Block (blockIdx.x, blockIdx.y) owns
+// the 16 RT x 16 CT tile of rows 16 RT blockIdx.y and columns 16 CT
+// blockIdx.x; thread (ty, tx) of the 16 x 16 grid its rows ty + 16 i
+// (i < RT) and columns tx + 16 j (j < CT). Slab s (kCSlabBytes of k per
+// row of both operands, rows padded to kCLdBytes so the 16 W rows a
+// quarter-warp reads fall in distinct banks) goes to stage s % S (S =
+// kCStages) by 16-byte cp.async, S - 1 slabs ahead, one barrier per
+// slab. Each sum runs over k in order; bf16 values are widened exactly,
+// so products are exact either way. Rows past R (columns past N) read row
+// R - 1 (N - 1) and are not stored.
+template <typename T, int RT, int CT, int KIND>
+__device__ __forceinline__ void cc_gemm_body(const T* __restrict__ A,
+                                             int lda,
+                                             const T* __restrict__ W,
+                                             int ldw, int R, int N, int K,
+                                             const Epi<T>& epi,
+                                             unsigned char* smem) {
+  constexpr int V = 16 / sizeof(T);                 // values per pack
+  constexpr int SK = kCSlabBytes / sizeof(T);       // slab depth
+  constexpr int LD = kCLdBytes / sizeof(T);         // padded row
+  constexpr int BR = 16 * RT, BN = 16 * CT, S = kCStages;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int row0 = blockIdx.y * BR, col0 = blockIdx.x * BN;
+  T* ring = reinterpret_cast<T*>(smem);  // [S][BR + BN][LD]
+  constexpr int kStage = (BR + BN) * LD;
+  const int nk = cdiv(K, SK);
+  const SlabCopy<T, BR, BN, kCSlabBytes / 16, LD> copy(A, lda, row0, R, W,
+                                                       ldw, col0, N);
+  auto issue = [&](int s) {
+    copy.issue(ring + (s % S) * kStage, s * SK,
+               K - s * SK < SK ? K - s * SK : SK);
+  };
+
+  float acc[RT][CT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
+  for (int s = 0; s < S - 1; ++s) issue(s);
+  for (int s = 0; s < nk; ++s) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // slab s landed for all; slab s - 1 consumed
+    issue(s + S - 1);
+    const T* a = ring + (s % S) * kStage + ty * LD;
+    const T* b = ring + (s % S) * kStage + (BR + tx) * LD;
+    const int kb = K - s * SK < SK ? K - s * SK : SK;
+    for (int kk = 0; kk < kb; kk += V) {
+      float av[RT][V], bv[CT][V];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) load_pack<T>(a + 16 * i * LD + kk, av[i]);
+#pragma unroll
+      for (int j = 0; j < CT; ++j) load_pack<T>(b + 16 * j * LD + kk, bv[j]);
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < CT; ++j)
+            acc[i][j] = fmaf(av[i][e], bv[j][e], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+      const int r = row0 + ty + 16 * i, c = col0 + tx + 16 * j;
+      if (r < R && c < N)
+        epi.out[size_t(r) * epi.ldo + c] =
+            from_f<T>(epi_value<KIND>(epi, acc[i][j], r, c));
+    }
+}
+
+// The attention core of fused_ln_attn, row tile blockIdx.x (block_rows(L,
+// BM) rows of whole tracks, BM = attn_tile_rows(L)) and head h =
+// blockIdx.y: the head's q|k|v from qkv_all (R, 3C), softmax(q k^T /
+// sqrt(D)) v within each track (head_attention; with 16-byte loads where D
+// % 8 == 0), into os (R, C) at columns
+// hD .. (h + 1) D, rounded to T.
+template <typename T, int BM>
+__device__ __forceinline__ void attn_core_body(const T* __restrict__ qkv_all,
+                                               T* __restrict__ os, int R,
+                                               int C, int L, int H,
+                                               unsigned char* smem) {
+  const int tid = threadIdx.x, D = C / H, h = blockIdx.y;
+  const int BR = block_rows(L, BM);
+  const int row0 = blockIdx.x * BR;
+  const int rows = R - row0 < BR ? R - row0 : BR;
+  T* qkv = reinterpret_cast<T*>(smem);  // [BM][3D]
+  float* sc = reinterpret_cast<float*>(smem
+                                       + align_up(size_t(BM) * 3 * D
+                                                  * sizeof(T)));  // [BM][L]
+  T* o = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(sc)
+                              + align_up(size_t(BM) * L * 4));  // [BM][D]
+  for (int idx = tid; idx < rows * 3 * D; idx += kThreads) {
+    const int r = idx / (3 * D), n = idx - r * 3 * D, part = n / D;
+    qkv[idx] = qkv_all[size_t(row0 + r) * 3 * C + part * C + h * D + n
+                       - part * D];
+  }
+  __syncthreads();
+  if (D % 8 == 0)  // 16-byte aligned rows of q|k|v and o
+    ring_head_attention<T, BM>(qkv, sc, o, D, rows, L, D,
+                               1.0f / sqrtf(float(D)));
+  else
+    head_attention<T, BM>(qkv, sc, o, D, rows, L, D, 1.0f / sqrtf(float(D)));
+  __syncthreads();
+  for (int idx = tid; idx < rows * D; idx += kThreads) {
+    const int r = idx / D, e = idx - r * D;
+    os[size_t(row0 + r) * C + h * D + e] = o[idx];
   }
 }
 

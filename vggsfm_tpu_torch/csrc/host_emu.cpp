@@ -24,53 +24,116 @@ int run_ln_mlp_tile(const void* x, const void* w1, const void* b1,
   return 0;
 }
 
-template <typename T, bool TC>
-int run_ln_mlp(const void* x, const void* w1, const void* b1, const void* w2,
-               const void* b2, void* out, int R, int C, int M) {
-  if (C <= vf::kMaxC)
-    return run_ln_mlp_tile<T, TC, vf::NarrowTile>(x, w1, b1, w2, b2, out, R,
-                                                  C, M);
-  return run_ln_mlp_tile<T, TC, vf::WideTile>(x, w1, b1, w2, b2, out, R, C,
-                                              M);
+template <typename T>
+void run_ln_rows(const void* x, void* xn, float* stats, int R, int C) {
+  emu_launch(vf::cdiv(R, vf::kLnRows), vf::kThreads, vf::ln_rows_smem_bytes(),
+             [&](unsigned char* s) {
+               vf::ln_rows_body<T>(static_cast<const T*>(x),
+                                   static_cast<T*>(xn), stats, R, C, s);
+             });
 }
 
-template <typename T, bool TC, int BM>
-int run_attn_tile(const void* x, const void* w_in, const void* b_in,
-                  const void* w_out, const void* b_out, void* out, void* xs,
-                  void* os, int R, int C, int L, int H) {
-  const size_t smem = vf::attn_smem_bytes(C, H, L, sizeof(T));
-  const int br = vf::block_rows(L, BM);
-  const int tiles = (R + br - 1) / br;
-  const T* xt = static_cast<const T*>(x);
-  emu_launch(tiles, vf::kThreads, smem, [&](unsigned char* s) {
-    vf::attn_ln_body<T, BM>(xt, static_cast<T*>(xs), R, C, L, H, s);
-  });
-  emu_launch(tiles, vf::kThreads, smem, [&](unsigned char* s) {
-    vf::attn_heads_body<T, TC, BM>(
-        static_cast<const T*>(w_in), static_cast<const T*>(b_in),
-        static_cast<const T*>(xs), static_cast<T*>(os), R, C, L, H, s);
-  }, H);
-  emu_launch(tiles, vf::kThreads, smem, [&](unsigned char* s) {
-    vf::attn_out_body<T, TC, BM>(
-        xt, static_cast<const T*>(w_out), static_cast<const T*>(b_out),
-        static_cast<T*>(out), static_cast<const T*>(os), R, C, L, H, s);
-  }, (C + vf::kAttnNC - 1) / vf::kAttnNC);
+int run_wide_mlp(const void* x, const void* w1, const void* b1,
+                 const void* w2, const void* b2, void* out, void* scratch,
+                 int R, int C, int M) {
+  using bf = __nv_bfloat16;
+  if (!scratch) return -9;
+  void* xn = scratch;
+  void* h = static_cast<bf*>(scratch) + size_t(R) * C;
+  run_ln_rows<bf>(x, xn, nullptr, R, C);
+  const vf::Epi<bf> fc1{static_cast<const bf*>(b1), nullptr, nullptr,
+                        static_cast<bf*>(h), M};
+  emu_launch(vf::cdiv(M, vf::kGN), vf::kThreads, vf::tc_gemm_smem_bytes(),
+             [&](unsigned char* s) {
+               vf::tc_gemm_body<vf::kEpiGelu>(
+                   static_cast<const bf*>(xn), C, static_cast<const bf*>(w1),
+                   C, R, M, C, fc1, s);
+             }, vf::cdiv(R, vf::kGM));
+  const vf::Epi<bf> fc2{static_cast<const bf*>(b2), static_cast<const bf*>(x),
+                        nullptr, static_cast<bf*>(out), C};
+  emu_launch(vf::cdiv(C, vf::kGN), vf::kThreads, vf::tc_gemm_smem_bytes(),
+             [&](unsigned char* s) {
+               vf::tc_gemm_body<vf::kEpiResid>(
+                   static_cast<const bf*>(h), M, static_cast<const bf*>(w2),
+                   M, R, C, M, fc2, s);
+             }, vf::cdiv(R, vf::kGM));
   return 0;
 }
 
 template <typename T, bool TC>
+int run_ln_mlp(const void* x, const void* w1, const void* b1, const void* w2,
+               const void* b2, void* out, void* scratch, int R, int C,
+               int M) {
+  if constexpr (TC) {
+    if (C > vf::kMaxC)
+      return run_wide_mlp(x, w1, b1, w2, b2, out, scratch, R, C, M);
+    return run_ln_mlp_tile<T, true, vf::NarrowTile>(x, w1, b1, w2, b2, out, R,
+                                                    C, M);
+  }
+  if (C <= vf::kMaxC)
+    return run_ln_mlp_tile<T, false, vf::NarrowTile>(x, w1, b1, w2, b2, out,
+                                                     R, C, M);
+  return run_ln_mlp_tile<T, false, vf::WideTile>(x, w1, b1, w2, b2, out, R, C,
+                                                 M);
+}
+
+template <typename T, int RT, int CT, int KIND>
+void run_cc_gemm_tile(const T* A, const T* W, int R, int N, int K,
+                      const vf::Epi<T>& epi) {
+  emu_launch(vf::cdiv(N, 16 * CT), vf::kThreads,
+             vf::cc_gemm_smem_bytes(RT, CT), [&](unsigned char* s) {
+               vf::cc_gemm_body<T, RT, CT, KIND>(A, K, W, K, R, N, K, epi, s);
+             }, vf::cdiv(R, 16 * RT));
+}
+
+template <typename T, int KIND>
+void run_cc_gemm(const T* A, const T* W, int R, int N, int K,
+                 const vf::Epi<T>& epi, int sms) {
+  const int tile = vf::cc_tile(R, N, sms);
+  if (tile == 44)
+    run_cc_gemm_tile<T, 4, 4, KIND>(A, W, R, N, K, epi);
+  else if (tile == 41)
+    run_cc_gemm_tile<T, 4, 1, KIND>(A, W, R, N, K, epi);
+  else
+    run_cc_gemm_tile<T, 1, 1, KIND>(A, W, R, N, K, epi);
+}
+
+template <typename T, int BM>
+void run_attn_core(const T* qkv, T* os, int R, int C, int L, int H) {
+  emu_launch(vf::cdiv(R, vf::block_rows(L, BM)), vf::kThreads,
+             vf::attn_core_smem_bytes(C, H, L, sizeof(T)),
+             [&](unsigned char* s) {
+               vf::attn_core_body<T, BM>(qkv, os, R, C, L, H, s);
+             }, H);
+}
+
+template <typename T>
 int run_attn(const void* x, const void* w_in, const void* b_in,
-             const void* w_out, const void* b_out, void* out, void* xs,
-             void* os, int R, int C, int L, int H) {
+             const void* w_out, const void* b_out, void* out, void* scratch,
+             int R, int C, int L, int H, int sms) {
+  const vf::AttnScratch sc = vf::attn_scratch_carve(scratch, R, C, sizeof(T));
+  const T* xt = static_cast<const T*>(x);
+  T* xst = static_cast<T*>(sc.xs);
+  T* qt = static_cast<T*>(sc.qkv);
+  T* ot = static_cast<T*>(sc.os);
+  float* st = sc.stats;
+  run_ln_rows<T>(x, xst, st, R, C);
+  const vf::Epi<T> proj{static_cast<const T*>(b_in), nullptr, nullptr, qt,
+                        3 * C};
+  run_cc_gemm<T, vf::kEpiBias>(xst, static_cast<const T*>(w_in), R, 3 * C, C,
+                               proj, sms);
   const int bm = vf::attn_tile_rows(L);
   if (bm == 16)
-    return run_attn_tile<T, TC, 16>(x, w_in, b_in, w_out, b_out, out, xs, os,
-                                    R, C, L, H);
-  if (bm == 32)
-    return run_attn_tile<T, TC, 32>(x, w_in, b_in, w_out, b_out, out, xs, os,
-                                    R, C, L, H);
-  return run_attn_tile<T, TC, 64>(x, w_in, b_in, w_out, b_out, out, xs, os, R,
-                                  C, L, H);
+    run_attn_core<T, 16>(qt, ot, R, C, L, H);
+  else if (bm == 32)
+    run_attn_core<T, 32>(qt, ot, R, C, L, H);
+  else
+    run_attn_core<T, 64>(qt, ot, R, C, L, H);
+  const vf::Epi<T> res{static_cast<const T*>(b_out), xt, st,
+                       static_cast<T*>(out), C};
+  run_cc_gemm<T, vf::kEpiNormResid>(ot, static_cast<const T*>(w_out), R, C,
+                                    C, res, sms);
+  return 0;
 }
 
 template <typename T, bool TC>
@@ -133,16 +196,26 @@ size_t vf_corr_smem_bytes(int C, int radius, int tsize) {
 }
 
 int vf_fused_ln_mlp(int dtype, const void* x, const void* w1, const void* b1,
-                    const void* w2, const void* b2, void* out, int R, int C,
-                    int M) {
+                    const void* w2, const void* b2, void* out, void* scratch,
+                    int R, int C, int M) {
   const int bad = vf::check_mlp_shape(R, C, M);
   if (bad) return bad;
   if (dtype == 0)
-    return run_ln_mlp<float, false>(x, w1, b1, w2, b2, out, R, C, M);
+    return run_ln_mlp<float, false>(x, w1, b1, w2, b2, out, nullptr, R, C, M);
   if (dtype != 1) return -100;
   if (vf::use_tc(2, C, 16, M))
-    return run_ln_mlp<__nv_bfloat16, true>(x, w1, b1, w2, b2, out, R, C, M);
-  return run_ln_mlp<__nv_bfloat16, false>(x, w1, b1, w2, b2, out, R, C, M);
+    return run_ln_mlp<__nv_bfloat16, true>(x, w1, b1, w2, b2, out, scratch, R,
+                                           C, M);
+  return run_ln_mlp<__nv_bfloat16, false>(x, w1, b1, w2, b2, out, nullptr, R,
+                                          C, M);
+}
+
+int vf_ln_mlp_kernels(int dtype, int C, int M) {
+  return vf::ln_mlp_kernels(dtype == 1 ? 2 : 4, C, M);
+}
+
+size_t vf_ln_mlp_scratch_bytes(int dtype, int R, int C, int M) {
+  return vf::wide_mlp_scratch_bytes(dtype == 1 ? 2 : 4, R, C, M);
 }
 
 int vf_fused_block(int dtype, const void* x, const void* w_in,
@@ -165,22 +238,23 @@ int vf_fused_block(int dtype, const void* x, const void* w_in,
 
 int vf_fused_ln_attn(int dtype, const void* x, const void* w_in,
                      const void* b_in, const void* w_out, const void* b_out,
-                     void* out, void* xs, void* os, int R, int C, int L,
-                     int H) {
+                     void* out, void* scratch, int R, int C, int L, int H,
+                     int sms) {
   const int bad = vf::check_attn_shape(R, C, L, H);
   if (bad) return bad;
   if (dtype == 0)
-    return run_attn<float, false>(x, w_in, b_in, w_out, b_out, out, xs, os, R,
-                                  C, L, H);
+    return run_attn<float>(x, w_in, b_in, w_out, b_out, out, scratch, R, C, L,
+                           H, sms);
   if (dtype != 1) return -100;
-  if (vf::use_tc(2, C, C / H, 16))
-    return run_attn<__nv_bfloat16, true>(x, w_in, b_in, w_out, b_out, out, xs,
-                                         os, R, C, L, H);
-  return run_attn<__nv_bfloat16, false>(x, w_in, b_in, w_out, b_out, out, xs,
-                                        os, R, C, L, H);
+  return run_attn<__nv_bfloat16>(x, w_in, b_in, w_out, b_out, out, scratch,
+                                 R, C, L, H, sms);
 }
 
-long vf_attn_scratch_rows(int R, int L) { return vf::attn_scratch_rows(R, L); }
+size_t vf_attn_scratch_bytes(int dtype, int R, int C) {
+  return vf::attn_scratch_bytes(R, C, dtype == 1 ? 2 : 4);
+}
+
+int vf_cc_tile(int R, int N, int sms) { return vf::cc_tile(R, N, sms); }
 
 size_t vf_block_smem_bytes(int C, int H, int L, int M, int tsize) {
   return vf::block_smem_bytes(C, H, L, M, tsize);

@@ -3,16 +3,14 @@
 // compiler and runs on the CPU for
 // testing: one std::thread per CUDA thread, a std::barrier per block for
 // __syncthreads, blocks one after another, bit-exact bfloat16 conversions
-// (round to nearest even), and the 16x16x16 nvcuda::wmma calls with every
-// lane holding the whole tile (f32 products and sums, k in order; lane 0
-// of each warp stores). The warp-level PTX of the ring path (fused_former.cuh)
-// is emulated by its documented per-lane layouts: ldmatrix and
+// (round to nearest even). The warp-level PTX (fused_former.cuh) is
+// emulated by its documented per-lane layouts: ldmatrix and
 // mma.sync.m16n8k16 exchange the lanes' registers through a per-warp
 // scratch between two 32-thread barriers, and each lane then computes its
-// own fragment (mma: f32 products and sums, k in order, as wmma's); a
-// cp.async copy is held back until the cp.async.wait_group that must see
-// it, the latest moment the hardware may land it, so a read of a stage
-// before its wait finds stale data. Not used by the CUDA build.
+// own fragment (mma: f32 products and sums, k in order); a cp.async copy
+// is held back until the cp.async.wait_group that must see it, the latest
+// moment the hardware may land it, so a read of a stage before its wait
+// finds stale data. Not used by the CUDA build.
 #pragma once
 
 #include <math.h>
@@ -24,7 +22,6 @@
 #include <cstring>
 #include <memory>
 #include <thread>
-#include <type_traits>
 #include <vector>
 
 struct dim3 {
@@ -66,70 +63,13 @@ inline float __uint_as_float(unsigned u) {
   return f;
 }
 
-inline float emu_to_f(float v) { return v; }
-inline float emu_to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-namespace nvcuda {
-namespace wmma {
-
-struct matrix_a {};
-struct matrix_b {};
-struct accumulator {};
-struct row_major {};
-struct col_major {};
-enum layout_t { mem_row_major, mem_col_major };
-
-template <typename Use, int m, int n, int k, typename T,
-          typename Layout = void>
-struct fragment {
-  float v[16][16];
-};
-
-template <typename Use, typename T, typename Layout>
-void load_matrix_sync(fragment<Use, 16, 16, 16, T, Layout>& f, const T* p,
-                      unsigned ldm) {
-  const bool rm = std::is_same<Layout, row_major>::value;
-  for (int r = 0; r < 16; ++r)
-    for (int c = 0; c < 16; ++c)
-      f.v[r][c] = emu_to_f(rm ? p[r * ldm + c] : p[c * ldm + r]);
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
 }
 
-inline void fill_fragment(fragment<accumulator, 16, 16, 16, float>& f,
-                          float x) {
-  for (auto& row : f.v)
-    for (auto& e : row) e = x;
-}
-
-template <typename T, typename LA, typename LB>
-void mma_sync(fragment<accumulator, 16, 16, 16, float>& d,
-              const fragment<matrix_a, 16, 16, 16, T, LA>& a,
-              const fragment<matrix_b, 16, 16, 16, T, LB>& b,
-              const fragment<accumulator, 16, 16, 16, float>& c) {
-  float out[16][16];
-  for (int r = 0; r < 16; ++r)
-    for (int n = 0; n < 16; ++n) {
-      float s = c.v[r][n];
-      for (int k = 0; k < 16; ++k) s = fmaf(a.v[r][k], b.v[k][n], s);
-      out[r][n] = s;
-    }
-  std::memcpy(d.v, out, sizeof(out));
-}
-
-inline void store_matrix_sync(float* p,
-                              const fragment<accumulator, 16, 16, 16, float>& f,
-                              unsigned ldm, layout_t layout) {
-  if (threadIdx.x % 32 != 0) return;
-  for (int r = 0; r < 16; ++r)
-    for (int c = 0; c < 16; ++c) {
-      if (layout == mem_row_major)
-        p[r * ldm + c] = f.v[r][c];
-      else
-        p[c * ldm + r] = f.v[r][c];
-    }
-}
-
-}  // namespace wmma
-}  // namespace nvcuda
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 v) { return v.bits; }
 
 inline std::barrier<>* emu_barrier = nullptr;
 

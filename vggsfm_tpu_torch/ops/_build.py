@@ -104,18 +104,24 @@ def _build(kind: str, files, make_cmd) -> str:
 def _declare(lib, with_stream: bool):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     tail = [vp] if with_stream else []
-    lib.vf_fused_ln_mlp.argtypes = [ci] + [vp] * 6 + [ci] * 3 + tail
+    lib.vf_fused_ln_mlp.argtypes = [ci] + [vp] * 7 + [ci] * 3 + tail
     lib.vf_fused_ln_mlp.restype = ci
+    lib.vf_ln_mlp_kernels.argtypes = [ci] * 3
+    lib.vf_ln_mlp_kernels.restype = ci
+    lib.vf_ln_mlp_scratch_bytes.argtypes = [ci] * 4
+    lib.vf_ln_mlp_scratch_bytes.restype = ctypes.c_size_t
     lib.vf_fused_block.argtypes = [ci] + [vp] * 10 + [ci] * 5 + tail
     lib.vf_fused_block.restype = ci
     lib.vf_block_smem_bytes.argtypes = [ci] * 5
     lib.vf_block_smem_bytes.restype = ctypes.c_size_t
     lib.vf_ln_mlp_smem_bytes.argtypes = [ci] * 3
     lib.vf_ln_mlp_smem_bytes.restype = ctypes.c_size_t
-    lib.vf_fused_ln_attn.argtypes = [ci] + [vp] * 8 + [ci] * 4 + tail
+    lib.vf_fused_ln_attn.argtypes = [ci] + [vp] * 7 + [ci] * 5 + tail
     lib.vf_fused_ln_attn.restype = ci
-    lib.vf_attn_scratch_rows.argtypes = [ci] * 2
-    lib.vf_attn_scratch_rows.restype = ctypes.c_long
+    lib.vf_attn_scratch_bytes.argtypes = [ci] * 3
+    lib.vf_attn_scratch_bytes.restype = ctypes.c_size_t
+    lib.vf_cc_tile.argtypes = [ci] * 3
+    lib.vf_cc_tile.restype = ci
     lib.vf_attn_smem_bytes.argtypes = [ci] * 4
     lib.vf_attn_smem_bytes.restype = ctypes.c_size_t
     lib.vf_corr_sample.argtypes = [ci] + [vp] * 4 + [ci] * 6 + tail

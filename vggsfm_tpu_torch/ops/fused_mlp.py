@@ -11,8 +11,20 @@ Counterparts of vggsfm_tpu/ops/fused_mlp.py (`fused_transformer_block`,
   * a plain PyTorch version (``*_ref``) of the same function with the same
     rounding points, which the wrapper takes only for CPU tensors;
   * a launch counter (`launch_counts`, shared with ops/corr.py), bumped
-    once per kernel launch:
-    one per call of the first two ops, ATTN_KERNELS per `fused_ln_attn`.
+    once per kernel launch: one per `fused_transformer_block` call,
+    WIDE_MLP_KERNELS per `fused_ln_mlp` call on the wide path (else one;
+    the library's `vf_ln_mlp_kernels`), ATTN_KERNELS per `fused_ln_attn`
+    call.
+
+Routes on the card: `fused_ln_mlp` in bf16 at 384 < C <= 768 (the camera's
+cross-attention tails) runs the wide path, three kernels meeting in bf16
+scratch the wrapper allocates: the LayerNorm pass (xn, R x C), then two
+tensor-core GEMMs with fused epilogues, h = gelu(xn w1^T + b1) (R x M) and
+out = x + (h w2^T + b2). Every other `fused_ln_mlp` is one kernel over
+whole-row tiles. `fused_ln_attn` is four kernels: the LayerNorm pass (the
+normalized rows and their f32 statistics), the q|k|v GEMM, the attention
+core per (row tile, head), and the out-projection GEMM with the normalized
+residual, spread over the card's SMs by the GEMM tile (csrc/fused_former.cuh).
 
 Numerics (as the TPU kernels): LN without affine, eps 1e-6, statistics in
 f32; every matrix product accumulates in f32; the normalized input, q/k/v,
@@ -36,9 +48,12 @@ MAX_L = 64
 MAX_HEAD_DIM = 64    # whole-block kernel
 MAX_ATTN_HEAD_DIM = 128
 
-# kernels one fused_ln_attn call launches: LayerNorm, per-head attention,
-# out-projection
-ATTN_KERNELS = 3
+# kernels one fused_ln_attn call launches: LayerNorm, q|k|v projection,
+# attention core, out-projection
+ATTN_KERNELS = 4
+# kernels one fused_ln_mlp call launches on the wide path: LayerNorm, fc1 +
+# GELU, fc2 + residual
+WIDE_MLP_KERNELS = 3
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -57,11 +72,14 @@ def mlp_kernel_takes(C: int) -> bool:
 
 def mlp_route_takes(dtype, C: int) -> bool:
     """Whether a pre-LN MLP tail of width C in `dtype` goes to the
-    fused_ln_mlp kernel. f32 rows wider than 384 stay plain: the kernel's
-    f32 instantiation runs on the CUDA cores, measured ~3x slower than the
-    plain cuBLAS version at C = 384 (PERF.md), and the JAX package keeps
-    those tails (the camera's 768-wide f32 trunk and self-attention MLPs)
-    on its plain path too."""
+    fused_ln_mlp kernels. bf16 rows wider than 384 (the camera's
+    cross-attention tails) take the wide path: WIDE_MLP_KERNELS launches
+    per call, a LayerNorm pass and two tensor-core GEMMs (with M a
+    multiple of 16; else one CUDA-core kernel). f32 rows wider than 384
+    stay plain: the kernel's f32 instantiation runs on the CUDA cores,
+    measured ~3x slower than the plain cuBLAS version at C = 384
+    (PERF.md), and the JAX package keeps those tails (the camera's
+    768-wide f32 trunk and self-attention MLPs) on its plain path too."""
     return mlp_kernel_takes(C) and (dtype == torch.bfloat16 or C <= MAX_C)
 
 
@@ -159,7 +177,8 @@ def fused_ln_mlp(x, w1, b1, w2, b2):
 
     x (R, C) float32 or bfloat16; w1 (M, C), b1 (M,), w2 (C, M), b2 (C,)
     of the same dtype. CPU tensors take `fused_ln_mlp_ref`; CUDA tensors
-    launch the kernel or raise. Returns (R, C) in x's dtype.
+    launch the kernel (the wide path's WIDE_MLP_KERNELS in bf16 above
+    C = 384) or raise. Returns (R, C) in x's dtype.
     """
     if x.device.type == "cpu":
         return fused_ln_mlp_ref(x, w1, b1, w2, b2)
@@ -175,14 +194,20 @@ def fused_ln_mlp(x, w1, b1, w2, b2):
     if R == 0:
         return out
     lib = _build.load_library()
+    # the wide path's scratch (the normalized rows and the GELU output)
+    nbytes = lib.vf_ln_mlp_scratch_bytes(_DTYPES[x.dtype], R, C, M)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) \
+        if nbytes else None
     with torch.cuda.device(x.device):
         rc = lib.vf_fused_ln_mlp(
             _DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), R, C, M,
+            w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), R, C, M,
             _stream())
     if rc != 0:
         raise RuntimeError(f"fused_ln_mlp kernel launch failed: code {rc}")
-    launch_counts["fused_ln_mlp"] += 1
+    launch_counts["fused_ln_mlp"] += lib.vf_ln_mlp_kernels(_DTYPES[x.dtype],
+                                                           C, M)
     return out
 
 
@@ -235,9 +260,9 @@ def fused_ln_attn(x, w_in, b_in, w_out, b_out, seq_len: int, num_heads: int):
 
     w_in (3C, C), b_in (3C,) packed q|k|v; w_out (C, C), b_out (C,), of
     x's dtype. CPU tensors take `fused_ln_attn_ref`; CUDA tensors launch
-    the op's ATTN_KERNELS kernels (LayerNorm, per-head attention,
-    out-projection, in row tiles the kernels choose from `seq_len`;
-    csrc/fused_former.cuh) or raise. Returns (R, C) in x's dtype.
+    the op's ATTN_KERNELS kernels (LayerNorm, q|k|v projection, attention
+    core, out-projection; csrc/fused_former.cuh) or raise. Returns (R, C)
+    in x's dtype.
     """
     if x.device.type == "cpu":
         return fused_ln_attn_ref(x, w_in, b_in, w_out, b_out, seq_len,
@@ -257,15 +282,16 @@ def fused_ln_attn(x, w_in, b_in, w_out, b_out, seq_len: int, num_heads: int):
     if R == 0:
         return out
     lib = _build.load_library()
-    # scratch tiles per row tile: the normalized rows and the head outputs
-    xs = torch.empty(lib.vf_attn_scratch_rows(R, seq_len), C, dtype=x.dtype,
-                     device=x.device)
-    os_ = torch.empty_like(xs)
+    # scratch: the normalized rows, q|k|v, the head outputs, the rows'
+    # LayerNorm statistics
+    scratch = torch.empty(lib.vf_attn_scratch_bytes(_DTYPES[x.dtype], R, C),
+                          dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.vf_fused_ln_attn(
             _DTYPES[x.dtype], x.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
             w_out.data_ptr(), b_out.data_ptr(), out.data_ptr(),
-            xs.data_ptr(), os_.data_ptr(), R, C, seq_len, num_heads,
+            scratch.data_ptr(), R, C, seq_len, num_heads,
+            torch.cuda.get_device_properties(x.device).multi_processor_count,
             _stream())
     if rc != 0:
         raise RuntimeError(f"fused_ln_attn kernel launch failed: code {rc}")

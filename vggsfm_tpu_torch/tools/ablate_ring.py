@@ -43,8 +43,8 @@ VARIANTS = {
     "no attention": [
         ("    ring_head_attention<T, BM>(qkv, sc, oh, ldo, rows, L, D, scale);\n",
          "")],
-    "scalar attention": [("    ring_head_attention<T, BM>(",
-                          "    head_attention<T, BM>(")],
+    "scalar attention": [("    ring_head_attention<T, BM>(qkv, sc, oh, ldo",
+                          "    head_attention<T, BM>(qkv, sc, oh, ldo")],
     # each slab's copies spread over the previous slab's 16-deep steps
     "copies issued in parts": [
         ("void issue(int g) const {",
@@ -78,35 +78,36 @@ def variant_source(base: str, subs) -> str:
     return text
 
 
-def build_all(root: str) -> dict:
+def build_all(root: str, variants=None) -> dict:
+    """One library per variant (default: this module's VARIANTS), built
+    side by side, with the C interface of ops/_build.py."""
     nvcc = _build.find_nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found")
     with open(os.path.join(_build.CSRC, "fused_former.cuh")) as f:
         base = f.read()
     procs = {}
-    for i, (name, subs) in enumerate(VARIANTS.items()):
+    for i, (name, subs) in enumerate((variants or VARIANTS).items()):
         d = os.path.join(root, str(i))
         os.makedirs(d, exist_ok=True)
-        shutil.copy(os.path.join(_build.CSRC, "fused_former.cu"), d)
+        for src in ("fused_former.cu", "corr_sample.cu", "corr_sample.cuh"):
+            shutil.copy(os.path.join(_build.CSRC, src), d)
         with open(os.path.join(d, "fused_former.cuh"), "w") as f:
             f.write(variant_source(base, subs))
         cmd = [nvcc, *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-o", os.path.join(d, "lib.so"),
-               os.path.join(d, "fused_former.cu")]
+               os.path.join(d, "fused_former.cu"),
+               os.path.join(d, "corr_sample.cu")]
         procs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True))
     libs = {}
-    vp, ci = ctypes.c_void_p, ctypes.c_int
     for name, (d, p) in procs.items():
         log = p.communicate()[0]
         if p.returncode:
             raise RuntimeError(f"building {name!r} failed:\n{log[-4000:]}")
-        lib = ctypes.CDLL(os.path.join(d, "lib.so"))
-        lib.vf_fused_ln_mlp.argtypes = [ci] + [vp] * 6 + [ci] * 3 + [vp]
-        lib.vf_fused_block.argtypes = [ci] + [vp] * 10 + [ci] * 5 + [vp]
-        libs[name] = lib
+        libs[name] = _build._declare(ctypes.CDLL(os.path.join(d, "lib.so")),
+                                     with_stream=True)
     return libs
 
 
@@ -158,7 +159,7 @@ def main() -> int:
         else:
             rc = lib.vf_fused_ln_mlp(1, x.data_ptr(),
                                      *[w.data_ptr() for w in ws[4:]],
-                                     o.data_ptr(), R, C, M, stream)
+                                     o.data_ptr(), None, R, C, M, stream)
         if rc:
             raise RuntimeError(f"launch failed: code {rc}")
 
