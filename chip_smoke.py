@@ -8,8 +8,9 @@ prints no result line):
 
 1. card: the GPU's name and power limit (nvidia-smi), then the build of
    the kernels from vggsfm_tpu_torch/csrc (nvcc, sm_90a), its time, each
-   kernel's registers and spills (ptxas), and the shared memory per block
-   of the ring path, the wide MLP path and the attention half;
+   kernel's registers and spills (ptxas; a correlation kernel that spills
+   fails the phase), and the shared memory per block of the ring path,
+   the wide MLP path, the attention half and the correlation kernel;
 2. kernels: each hand-written kernel on the card at the main path's
    shapes (the tracker's, the few-track path's 896 rows, the camera
    trunk's and cross-attention tails', and the attention probe's), in
@@ -20,20 +21,23 @@ prints no result line):
    `composed_ms`: the same function from the fewest stock calls
    (LayerNorm, Linear, SDPA, GELU; f32 with TF32 off), a yardstick the
    port never calls (`library_ms` stays null: no single call computes
-   the function); then the correlation
-   kernel at the few-track shapes (coarse level 0 and the coarsest level
-   with 48 and 63 tracks, the fine 31x31 32-channel maps with 16, 2 and 1
-   tracks in bf16 and f32, tracks inside, on and across every border and
-   far outside) against `corr_sample_plain`, each beside the full-map
-   `torch.matmul` + window form at the same shape, and both forms at 4096
-   tracks;
+   the function); then the correlation kernel, one launch per call over
+   all pyramid levels: at the few-track and odd shapes (NHWC and flat
+   channel-first, f32 and bf16 maps and output, tracks inside, on and
+   across every border and far outside) against `corr_sample_plain`, and
+   at the tracker's two main-path calls (coarse: 8 frames x 4096 tracks,
+   5 levels, C = 128; fine: 4096 x 8 track-frames, 3 levels of 31^2
+   patches, C = 32, flat; bf16), each with its device time, bound and
+   share, the plain version's time and the previous route's (the full-map
+   product + windows; the flat full map from an f32 copy);
 3. slice: the full-width tracker through VGGSfMRunner.predict_tracks:
    8 frames at 1024 px, 4096 query points, one query frame, 6 coarse
    iterations and fine tracking, bf16, seeded random weights with a
    non-zero flow_head. Frames are shifted crops of one seeded texture, so
    the median error against the planted shift is printed. Checks shapes,
    finite values, the pinned query frame, and that the fused kernels
-   carried every transformer block (launch counters);
+   carried every transformer block and the correlation kernel every
+   correlation call (launch counters);
 4. agree: the same weights at a reduced size (4 frames, 256 px, 128
    points, f32, TF32 off) on the card and on the CPU; the tracks must
    agree;
@@ -53,16 +57,17 @@ prints no result line):
 
 7. few tracks: 8 frames at 1024 px, bf16, every frame a query frame, the
    runner extracting 48 ALIKED points per frame (seeded weights), coarse
-   and fine tracking: 8 coarse calls of 48 tracks, each 6 iterations x 5
-   pyramid levels of the correlation kernel (240 `corr_sample_pallas`
-   launches beside the former kernels'); then the fine predictor called
-   directly on NHWC 31x31 32-channel maps with 16 tracks (3 levels x 4
-   iterations of `corr_sample_pallas_smallc`). Checks shapes, finite
-   values and the launch counts; then `track_frames` on the same frames
-   with its re-query of the short frames (3 rounds, 17 coarse calls); then
-   both against the CPU at a reduced size in f32 on the same query points
-   without the matching init, and with it on the kernel route against the
-   kernel's plain version on the card (gated) and against the CPU and the
+   and fine tracking: 8 coarse calls of 48 tracks, each 6 iterations of
+   one correlation launch over 5 pyramid levels (48 `corr_sample_pallas`
+   launches beside the former kernels'), 8 fine calls of 6 flat ones;
+   then the fine predictor called directly on NHWC 31x31 32-channel maps
+   with 16 tracks (4 iterations of one `corr_sample_pallas_smallc` launch
+   over 3 levels). Checks shapes, finite values and the launch counts;
+   then `track_frames` on the same frames with its re-query of the short
+   frames (3 rounds, 17 coarse calls); then both against the CPU at a
+   reduced size in f32 on the same query points without the matching
+   init, and with it on the kernel route against the kernel's plain
+   version on the card (gated) and against the CPU and the previous
    matmul route (printed: this mode's argmax steps flip between devices);
 8. query points: `get_query_points_batched` on the 8 frames at 4096 points
    for 'aliked', 'sift+harris' and 'sp+sift+aliked': the time of each, the
@@ -447,158 +452,224 @@ def kernel_phase(report: dict, extra: dict) -> None:
 
 # ------------------------------------------------- phase 2, correlation
 
-# The correlation kernel returns f32 sums of exact products (bf16 maps and
-# features are widened on load) and so does its plain version: they differ
-# by the order of up to (2r+2)^2 x 128-term f32 sums of O(1-30) values, from
-# f32 and from bf16 inputs alike. 1e-4 absolute on each element.
+# The correlation kernel sums exact products in f32 (bf16 maps and features
+# are widened on load) and so does its plain version: they differ by the
+# order of up to (2r+2)^2 x 600-term f32 sums of O(1-30) values, from f32
+# and from bf16 inputs alike. f32 output: 1e-4 absolute on each element;
+# bf16 output: one rounding of the plain f32 value (half a bf16 ulp of
+# it) plus that 1e-4.
 CORR_TOL = 1e-4
 
 
-def corr_inputs(g, S, H, W, C, N, dtype):
-    """Maps, positions and features on the card. The first positions sit
-    on integer cells, on and across every border and far outside; the rest
-    are uniform over the map and a 6-cell margin around it."""
+def corr_err(out, ref):
+    """(max |out - ref|, max of |out - ref| / its bound); ref: the plain
+    version's f32 result."""
     import torch
 
-    fmap = torch.randn(S, H, W, C, generator=g).to("cuda", dtype)
-    coords = torch.rand(S, N, 2, generator=g) * (W + 12.0) - 6.0
-    edge = torch.tensor([[3.0, 4.0], [-0.0, 0.0], [-1.0, H - 1.0],
-                         [W - 0.5, -0.25], [W + 2.5, H + 3.0],
-                         [-300.0, 5.0], [7.0, 1e6]])
-    coords[:, :min(N, len(edge))] = edge[:N]
-    feats = torch.randn(S, N, C, generator=g).to("cuda", dtype)
-    return fmap, coords.cuda(), feats
+    err = (out.float() - ref).abs()
+    if out.dtype == torch.float32:
+        bound = torch.full_like(err, CORR_TOL)
+    else:
+        _, e = torch.frexp(ref.abs())
+        bound = torch.ldexp(torch.ones_like(ref), e - 9) + CORR_TOL
+    return float(err.max()), float((err / bound).max())
 
 
-def corr_work(fmap, coords, radius):
+def corr_inputs(g, F, dims, C, N, dtype, flat=False, spread=None):
+    """A pyramid of len(dims) levels (NHWC, or views of flat channel-first
+    storage), positions and features on the card. Positions are uniform
+    over `spread` (lo, hi) cells at level 0, or over the map and a 6-cell
+    margin, the first ones on integer cells, on and across every border
+    and far outside."""
+    import torch
+
+    levels = []
+    for H, W in dims:
+        if flat:
+            x = torch.randn(F, C, H * W, generator=g).to("cuda", dtype)
+            levels.append(x.view(F, C, H, W).permute(0, 2, 3, 1))
+        else:
+            levels.append(torch.randn(F, H, W, C, generator=g).to("cuda",
+                                                                  dtype))
+    H, W = dims[0]
+    lo, hi = spread or (-6.0, W + 6.0)
+    coords = torch.rand(F, N, 2, generator=g) * (hi - lo) + lo
+    if spread is None:
+        edge = torch.tensor([[3.0, 4.0], [-0.0, 0.0], [-1.0, H - 1.0],
+                             [W - 0.5, -0.25], [W + 2.5, H + 3.0],
+                             [-300.0, 5.0], [7.0, 1e6]])
+        coords[:, :min(N, len(edge))] = edge[:N]
+    feats = torch.randn(F, N, C, generator=g).to("cuda", dtype)
+    return levels, coords.cuda(), feats
+
+
+def corr_work(levels, coords, radius, out_dtype):
     """Operations and bytes this call's data needs: each map cell under a
-    window read once (cells outside the map are not read; a cell under two
-    windows counts once), the features and positions once, the taps
-    written once; two operations per map value and window, eight per tap."""
+    window read once (cells outside the map are not read; a cell under
+    several windows counts once), the features and positions once, the
+    taps written once; two operations per map value and window, eight per
+    tap."""
     import torch
 
     from vggsfm_tpu_torch.ops.corr import window_index
 
-    S, H, W, C = fmap.shape
-    N = coords.shape[1]
-    idx, ok, _ = window_index(coords, radius, H, W)
-    frame = torch.arange(S, device=idx.device)[:, None, None] * (H * W)
-    cells_read = int(torch.unique((idx + frame)[ok]).numel())
-    taps = (2 * radius + 1) ** 2
-    tsize = fmap.element_size()
-    nbytes = (cells_read * C * tsize + S * N * (C * tsize + 8 + 4 * taps))
-    flops = 2 * int(ok.sum()) * C + 8 * S * N * taps
+    F, N = coords.shape[:2]
+    C = levels[0].shape[-1]
+    cells = inmap = 0
+    for i, lvl in enumerate(levels):
+        H, W = lvl.shape[1:3]
+        idx, ok, _ = window_index(coords / 2.0 ** i, radius, H, W)
+        frame = torch.arange(F, device=idx.device)[:, None, None] * (H * W)
+        cells += int(torch.unique((idx + frame)[ok]).numel())
+        inmap += int(ok.sum())
+    taps = len(levels) * (2 * radius + 1) ** 2
+    tsize = levels[0].element_size()
+    osize = torch.tensor([], dtype=out_dtype).element_size()
+    nbytes = cells * C * tsize + F * N * (C * tsize + 8 + taps * osize)
+    flops = 2 * inmap * C + 8 * F * N * taps
     return flops, nbytes
-
-
-def matmul_window_form(fmap, coords, feats, radius):
-    """The full-map form of the same function: one matrix product per
-    frame, then the windows (what `corr_sample` runs for N >= 64)."""
-    import torch
-
-    from vggsfm_tpu_torch.models.tracker import _window_from_cmap
-
-    S, H, W, C = fmap.shape
-    cmap = torch.matmul(feats, fmap.reshape(S, H * W, C).transpose(-1, -2))
-    corr = _window_from_cmap(cmap, coords, radius, (H, W), feats.dtype)
-    return corr / float(C) ** 0.5
 
 
 def corr_kernel_phase(report: dict, extra: dict) -> None:
     import torch
 
+    from vggsfm_tpu_torch.models import tracker as ttr
     from vggsfm_tpu_torch.ops import corr as tc
+    from vggsfm_tpu_torch.tools.ablate_corr import (
+        previous_corr_sample,
+        previous_corr_sample_flat,
+    )
 
     g = torch.Generator().manual_seed(1)
     f32, bf16 = torch.float32, torch.bfloat16
-    # (label, S, H, W, C, r, N, dtype) at the few-track path's shapes
+    coarse = [(128 >> i, 128 >> i) for i in range(5)]
+    fine = [(31, 31), (15, 15), (7, 7)]
+    # (label, F, level sizes, C, r, N, maps, output, flat) at the few-track
+    # path's and the odd shapes: every variant, tracks across the borders
     cases = [
-        ("coarse level 0, 48 tracks", 8, 128, 128, 128, 4, 48, f32),
-        ("coarse level 0, 63 tracks", 8, 128, 128, 128, 4, 63, f32),
-        ("coarse level 4 (8x8), 48 tracks", 8, 8, 8, 128, 4, 48, f32),
-        ("coarse level 4 (8x8), 63 tracks", 8, 8, 8, 128, 4, 63, f32),
-        ("fine level 0, 16 tracks", 8, 31, 31, 32, 3, 16, bf16),
-        ("fine level 0, 16 tracks", 8, 31, 31, 32, 3, 16, f32),
-        ("fine level 2 (7x7), 16 tracks", 8, 7, 7, 32, 3, 16, bf16),
-        ("fine level 0, 2 tracks", 8, 31, 31, 32, 3, 2, bf16),
-        ("fine level 0, 1 track", 8, 31, 31, 32, 3, 1, bf16),
-        ("fine level 0, 1 track", 8, 31, 31, 32, 3, 1, f32),
-        ("coarse level 0, 1 track", 8, 128, 128, 128, 4, 1, f32),
-        ("odd width C=33, 7 tracks", 2, 12, 14, 33, 1, 7, f32),
+        ("coarse few-track call", 8, coarse, 128, 4, 48, bf16, bf16, False),
+        ("coarse few-track call, f32", 8, coarse, 128, 4, 63, f32, f32,
+         False),
+        ("coarse level 4 (8x8) alone", 8, coarse[4:], 128, 4, 63, f32, f32,
+         False),
+        ("fine NHWC call", 8, fine, 32, 3, 16, bf16, bf16, False),
+        ("fine NHWC call, f32 out", 8, fine, 32, 3, 16, bf16, f32, False),
+        ("fine NHWC call, 1 track", 8, fine, 32, 3, 1, f32, f32, False),
+        ("fine flat, 64 track-frames", 64, fine, 32, 3, 1, bf16, bf16, True),
+        ("fine flat, f32", 64, fine, 32, 3, 1, f32, f32, True),
+        ("odd width C=33", 2, [(12, 14), (6, 7)], 33, 1, 7, f32, f32, False),
+        ("wide C=600", 2, [(20, 24), (10, 12)], 600, 4, 70, f32, bf16,
+         False),
     ]
-    main_case = {"corr_sample_pallas": ("coarse level 0, 48 tracks", f32),
-                 "corr_sample_pallas_smallc": ("fine level 0, 16 tracks",
-                                               bf16)}
-    for label, S, H, W, C, r, N, dtype in cases:
-        dn = str(dtype).split(".")[1]
-        name = ("corr_sample_pallas_smallc" if C < tc.SMALL_C
-                else "corr_sample_pallas")
-        fmap, coords, feats = corr_inputs(g, S, H, W, C, N, dtype)
-        out = tc.corr_sample_kernel(fmap, coords, feats, r)
+    for label, F, dims, C, r, N, dt, odt, flat in cases:
+        levels, coords, feats = corr_inputs(g, F, dims, C, N, dt, flat)
+        out = tc.corr_sample_kernel(levels, coords, feats, r, odt)
         torch.cuda.synchronize()
-        ref = tc.corr_sample_plain(fmap, coords, feats, r)
-        err = float((out - ref).abs().max())
+        ref = tc.corr_sample_plain(levels, coords, feats, r)
+        err, frac = corr_err(out, ref)
         # the window far outside the map: zeros, not a shifted window
         far_ok = N < 6 or not bool(out[:, 5].any())
-        lib = matmul_window_form(fmap, coords, feats, r)
-        lib_err = float((lib.float() - ref).abs().max())
         ms = cuda_time_ms(
-            lambda: tc.corr_sample_kernel(fmap, coords, feats, r), 50)
+            lambda: tc.corr_sample_kernel(levels, coords, feats, r, odt), 50)
         plain_ms = cuda_time_ms(
-            lambda: tc.corr_sample_plain(fmap, coords, feats, r), 20)
-        lib_ms = cuda_time_ms(
-            lambda: matmul_window_form(fmap, coords, feats, r), 20)
-        bms, by = bound_ms(*corr_work(fmap, coords, r), "float32")
-        ok = (bool(torch.isfinite(out).all()) and err <= CORR_TOL
-              and far_ok and out.dtype == torch.float32)
-        print(f"kernel {name} [{label}] S={S} {H}x{W} C={C} r={r} N={N} "
-              f"{dn}: max_abs_err={err:.3e} (bound {CORR_TOL:.0e}; matmul "
-              f"form vs plain {lib_err:.3e}) ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} matmul_form_ms={lib_ms:.4f} "
-              f"bound_ms={bms:.5f} ({by}) {'ok' if ok else 'FAIL'}",
-              flush=True)
+            lambda: tc.corr_sample_plain(levels, coords, feats, r, odt), 10)
+        bms, by = bound_ms(*corr_work(levels, coords, r, odt), "float32")
+        ok = (bool(torch.isfinite(out.float()).all()) and frac <= 1.0
+              and far_ok and out.dtype == odt)
+        print(f"kernel corr_sample [{label}] F={F} L={len(dims)} "
+              f"{dims[0][0]}x{dims[0][1]} C={C} r={r} N={N} "
+              f"{str(dt)[6:]} -> {str(odt)[6:]}: max_abs_err={err:.3e} "
+              f"({frac:.3f} of the bound) ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={bms:.5f} ({by}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise AssertionError(f"{name} [{label}] {dn}: err {err}, far "
-                                 f"window zero {far_ok}")
-        if main_case[name] == (label, dtype):
-            dev_ms = device_time_ms(
-                lambda: tc.corr_sample_kernel(fmap, coords, feats, r), 50,
-                "vcorr")
-            print(f"kernel {name} [{label}] {dn}: {dev_ms} ms per launch on "
-                  f"the device (profiler, 50 launches); ms={ms:.4f} above is "
-                  f"the host's launch rate", flush=True)
-            report[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                                device_ms=dev_ms)
-        del fmap, coords, feats, out, ref, lib
+            raise AssertionError(f"corr_sample [{label}]: err {err}, "
+                                 f"{frac} of the bound, far window zero "
+                                 f"{far_ok}")
+        del levels, coords, feats, out, ref
 
-    # which form would serve many tracks: both at 4096 tracks per frame,
-    # in the tracker's dtype flow (the kernel's maps f32 at C = 128, bf16 at
-    # C = 32; the matmul form in bf16). Printed, not gated: the routing
-    # stays the JAX package's.
-    many = {}
-    for label, S, H, W, C, r, dtype in (
-            ("coarse level 0", 8, 128, 128, 128, 4, f32),
-            ("fine level 0", 8, 31, 31, 32, 3, bf16)):
-        fmap, coords, feats = corr_inputs(g, S, H, W, C, 4096, dtype)
-        out = tc.corr_sample_kernel(fmap, coords, feats, r)
-        lo_map, lo_feats = fmap.to(bf16), feats.to(bf16)
-        lib = matmul_window_form(lo_map, coords, lo_feats, r)
-        diff = float((out - lib.float()).abs().max())
-        ms = cuda_time_ms(
-            lambda: tc.corr_sample_kernel(fmap, coords, feats, r), 10)
-        lib_ms = cuda_time_ms(
-            lambda: matmul_window_form(lo_map, coords, lo_feats, r), 10)
-        bms, by = bound_ms(*corr_work(fmap, coords, r), "float32")
-        print(f"kernel corr_sample at 4096 tracks [{label}] S={S} {H}x{W} "
-              f"C={C} r={r}: kernel ms={ms:.4f} (bound_ms={bms:.4f}, {by}) "
-              f"bf16 matmul form ms={lib_ms:.4f}; max difference "
-              f"{diff:.3e} (the matmul form rounds its map to bf16)",
-              flush=True)
-        many[label] = {"kernel_ms": ms, "matmul_form_ms": lib_ms,
-                       "bound_ms": bms}
-        del fmap, coords, feats, out, lib, lo_map, lo_feats
-    extra["corr_4096_tracks"] = many
+    # the tracker's two calls per iteration at the slice's shapes (bf16
+    # maps and output): the kernel against its plain version, its device
+    # time beside the bound, and the route each call took before
+    rows = extra.setdefault("corr_main_path", {})
+    for name, label, F, dims, C, r, N, flat, spread in (
+            ("corr_sample_pallas", "coarse call, 8 frames x 4096 tracks",
+             8, coarse, 128, 4, 4096, False, (0.0, 128.0)),
+            ("corr_sample_pallas_smallc",
+             "fine flat call, 4096 x 8 track-frames", 4096 * 8, fine, 32, 3,
+             1, True, (11.0, 19.0))):
+        levels, coords, feats = corr_inputs(g, F, dims, C, N, bf16, flat,
+                                            spread)
+        out = tc.corr_sample_kernel(levels, coords, feats, r, bf16)
+        torch.cuda.synchronize()
+        ref = tc.corr_sample_plain(levels, coords, feats, r)
+        err, frac = corr_err(out, ref)
+        del ref
+
+        def kern():
+            return tc.corr_sample_kernel(levels, coords, feats, r, bf16)
+
+        def plain():
+            return tc.corr_sample_plain(levels, coords, feats, r, bf16)
+
+        # the same call as the tracker makes it, in its (B, S, ...) layout,
+        # through the kernel route and through the previous one
+        if flat:
+            B, S = coords.shape[0] // 8, 8
+            pyr = [lv.permute(0, 3, 1, 2).reshape(B, S, C, -1)
+                   for lv in levels]
+            args = (pyr, dims, coords.reshape(B, S, N, 2),
+                    feats.reshape(B, S, N, C), r)
+
+            def route():
+                return ttr.corr_sample_flat(*args)
+
+            def previous():
+                return previous_corr_sample_flat(*args)
+        else:
+            pyr = [lv[None] for lv in levels]
+            args = (pyr, coords[None], feats[None], r)
+
+            def route():
+                return ttr.corr_sample(*args)
+
+            def previous():
+                return previous_corr_sample(*args)
+
+        prev_err = float((previous().float()
+                          - route().float()).abs().max())
+        ms = cuda_time_ms(kern, 20)
+        dev_ms = device_time_ms(kern, 20, "vcorr")
+        plain_ms = cuda_time_ms(plain, 3)
+        route_ms = cuda_time_ms(route, 10)
+        prev_ms = cuda_time_ms(previous, 5)
+        prev_dev_ms = device_ms_per_call(previous, 5)
+        flops, nbytes = corr_work(levels, coords, r, bf16)
+        bms, by = bound_ms(flops, nbytes, "float32")
+        ok = frac <= 1.0
+        share = bms / dev_ms if dev_ms else None
+        print(f"kernel {name} [{label}] L={len(dims)} C={C} r={r} bf16: "
+              f"max_abs_err={err:.3e} ({frac:.3f} of the bound) "
+              f"device_ms={dev_ms} ms={ms:.4f} "
+              f"bound_ms={bms:.5f} ({by}: {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB) share={share} plain_ms="
+              f"{plain_ms:.4f} tracker route ms={route_ms:.4f}; previous "
+              f"route ms={prev_ms:.4f} (device {prev_dev_ms}; max difference "
+              f"{prev_err:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} [{label}]: err {err}, {frac} of "
+                                 f"the bound")
+        report[name].update(max_abs_err=err, err_over_bound=frac, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                            library_ms=None, device_ms=dev_ms,
+                            previous_route_ms=prev_ms)
+        rows[name] = {"case": label, "device_ms": dev_ms, "ms": ms,
+                      "bound_ms": bms, "bound_by": by, "share": share,
+                      "plain_ms": plain_ms, "tracker_route_ms": route_ms,
+                      "previous_route_ms": prev_ms,
+                      "previous_route_device_ms": prev_dev_ms,
+                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+        del levels, coords, feats, out, pyr, args
 
 
 # ------------------------------------------------------------- phase 3
@@ -690,11 +761,12 @@ def slice_phase(report: dict, launches: dict) -> None:
     assert torch.equal(tracks[0, 0].cpu(), qp), "query frame not pinned"
     # one coarse call (4096 <= max_points_num // S) and one fine call
     # (4096 <= max_fine_points_num // S): per coarse call 6 iterations x
-    # (6 time + 6 virtual blocks) and 6 x 12 cross-attention tails, per
-    # fine call 6 iterations x 4 time blocks
+    # (6 time + 6 virtual blocks), 6 x 12 cross-attention tails and one
+    # correlation launch per iteration (all 5 levels); per fine call 6
+    # iterations x 4 time blocks and one flat correlation launch (3 levels)
     want = {"fused_transformer_block": 72 + 24, "fused_ln_mlp": 72,
-            "fused_ln_attn": 0, "corr_sample_pallas": 0,
-            "corr_sample_pallas_smallc": 0}
+            "fused_ln_attn": 0, "corr_sample_pallas": 6,
+            "corr_sample_pallas_smallc": 6}
     assert launches == want, f"launch counts {launches}, expected {want}"
 
     s = torch.arange(S, dtype=torch.float32)[:, None, None]
@@ -997,15 +1069,16 @@ def few_tracks_phase(report: dict, launches: dict) -> None:
     n_valid = int(torch.stack(valids).sum())
     for q in frames:  # each query frame keeps its own points
         assert torch.equal(tracks[0, q, q * K:(q + 1) * K], qps[q])
-    # 8 coarse calls of 48 tracks: each 6 iterations x 5 levels of the
-    # correlation kernel, 6 x (6 time + 6 virtual blocks) and 6 x 12
-    # cross-attention tails; 8 fine calls of 6 iterations x 4 time blocks
-    # (their correlation is the flat full-map form); then the direct fine
-    # call: 4 iterations x 3 levels and 4 x 4 time blocks
+    # 8 coarse calls of 48 tracks: each 6 iterations of one correlation
+    # launch (5 levels), 6 x (6 time + 6 virtual blocks) and 6 x 12
+    # cross-attention tails; 8 fine calls of 6 iterations x (4 time blocks
+    # and one flat correlation launch); then the direct fine call: 4
+    # iterations x (one NHWC correlation launch, 3 levels, and 4 time
+    # blocks)
     want = {"fused_transformer_block": S * (72 + 24) + fine_iters * 4,
             "fused_ln_mlp": S * 72, "fused_ln_attn": 0,
-            "corr_sample_pallas": S * 6 * 5,
-            "corr_sample_pallas_smallc": fine_iters * 3}
+            "corr_sample_pallas": S * 6,
+            "corr_sample_pallas_smallc": S * 6 + fine_iters}
     assert launches == want, f"launch counts {launches}, expected {want}"
     print(f"few tracks: tracks {tuple(tracks.shape)} from {S} query frames "
           f"x {K} ALIKED points ({n_valid} valid) in {wall:.3f} s (first "
@@ -1038,7 +1111,7 @@ def few_tracks_phase(report: dict, launches: dict) -> None:
         assert bool(torch.isfinite(t).all()), f"non-finite re-query {name}"
     for q in frames:  # the first round's tracks lead, pinned as before
         assert torch.equal(t3[0, q, q * K:(q + 1) * K], qps[q])
-    assert requery_launches["corr_sample_pallas"] == (2 * S + 1) * 6 * 5, \
+    assert requery_launches["corr_sample_pallas"] == (2 * S + 1) * 6, \
         requery_launches
     print(f"few tracks, track_frames with the re-query of short frames: "
           f"{P} -> {P3} tracks in 3 rounds ({requery_s:.3f} s); launches "
@@ -1079,8 +1152,9 @@ def few_tracks_phase(report: dict, launches: dict) -> None:
         out[dev] = (t.float().cpu(), preds[-1].float().cpu(),
                     dict(fm.launch_counts))
     fm.reset_launch_counts()
-    assert out["cuda"][2]["corr_sample_pallas"] == 2 * 6 * 5
-    assert out["cuda"][2]["corr_sample_pallas_smallc"] == fine_iters * 3
+    # 2 coarse and 2 fine calls of 6 iterations, the direct fine call
+    assert out["cuda"][2]["corr_sample_pallas"] == 2 * 6
+    assert out["cuda"][2]["corr_sample_pallas_smallc"] == 2 * 6 + fine_iters
     assert not any(out["cpu"][2].values())
     med, mx, frac = track_agreement(out["cuda"][0], out["cpu"][0])
     fmed, fmx, ffrac = track_agreement(out["cuda"][1], out["cpu"][1])
@@ -1105,14 +1179,16 @@ def matching_init_agreement(images, K) -> dict:
     visibility and the NCC polish), f32 at the reduced size. Gated: the
     kernel route on the card against the same run on the card with the
     kernel's plain version in its place. Printed: either against the CPU,
-    and the matmul route (2K points per call, no correlation kernel)
-    against the CPU: the argmax steps of this mode flip on near-ties
-    between the devices whichever form computes the correlation."""
+    and the previous routes (2K points per call: the full-map product, no
+    correlation kernel) against the CPU: the argmax steps of this mode
+    flip on near-ties between the devices whichever form computes the
+    correlation."""
     import torch
 
     from vggsfm_tpu_torch.models import tracker as ttr
     from vggsfm_tpu_torch.ops import corr as tc
     from vggsfm_tpu_torch.ops import fused_mlp as fm
+    from vggsfm_tpu_torch.tools.ablate_corr import previous_routes
 
     def run(dev, points, valid):
         r = make_runner("f32", dev, seed=8, query_method="aliked",
@@ -1142,10 +1218,11 @@ def matching_init_agreement(images, K) -> dict:
     finally:
         ttr.corr_sample_kernel = kernel
     ck = run("cpu", *pts[K])
-    gm = run("cuda", *pts[2 * K])
-    cm = run("cpu", *pts[2 * K])
-    assert gk[2] == 2 * 6 * 5 and gp[2] == 0 and gm[2] == 0, (gk[2], gp[2],
-                                                              gm[2])
+    with previous_routes():
+        gm = run("cuda", *pts[2 * K])
+        cm = run("cpu", *pts[2 * K])
+    assert gk[2] == 2 * 6 and gp[2] == 0 and gm[2] == 0, (gk[2], gp[2],
+                                                          gm[2])
 
     med, mx, frac = track_agreement(gk[0], gp[0])
     vis_diff = float((gk[1] - gp[1]).abs().max())
@@ -1162,7 +1239,8 @@ def matching_init_agreement(images, K) -> dict:
           f"px {frac_k:.4f} (max {mx_k:.2e} px, {int(out_k.sum())} tracks "
           f"out), plain version on the card {frac_p:.4f} (max {mx_p:.2e} px, "
           f"{int(out_p.sum())} out, {int((out_k & out_p).sum())} of them "
-          f"the same tracks), matmul route at {2 * K} points per call "
+          f"the same tracks), previous matmul route at {2 * K} points "
+          f"per call "
           f"{frac_m:.4f} (max {mx_m:.2e} px)", flush=True)
     if not ok:
         raise AssertionError("with the matching init on, the correlation "
@@ -1282,8 +1360,15 @@ def main() -> int:
         info = _build.build_info["vf_former"]
         print(f"build: {time.perf_counter() - t0:.1f} s "
               f"(nvcc {info['seconds']:.1f} s)", flush=True)
+        spills = []
         for kname, props in ptxas_report(info["log"]):
             print(f"  ptxas: {kname}: {props}")
+            if "vcorr" in kname and (
+                    ", 0 bytes spill stores, 0 bytes spill loads"
+                    not in props):
+                spills.append(kname)
+        if info["log"] != "cached" and spills:
+            raise AssertionError(f"correlation kernels spill: {spills}")
         lib = _build.load_library()
         print(f"  dynamic shared memory per block: block kernel bf16 C=384 "
               f"H=8 L=8 {lib.vf_block_smem_bytes(384, 8, 8, 1536, 2)} B, "
@@ -1291,7 +1376,9 @@ def main() -> int:
               f"ln_mlp bf16 C=384 {lib.vf_ln_mlp_smem_bytes(384, 1536, 2)} "
               f"B; wide ln_mlp GEMM bf16 C=768 "
               f"{lib.vf_ln_mlp_smem_bytes(768, 3072, 2)} B; ln_attn C=768 "
-              f"H=8 L=8 f32 {lib.vf_attn_smem_bytes(768, 8, 8, 4)} B (of "
+              f"H=8 L=8 f32 {lib.vf_attn_smem_bytes(768, 8, 8, 4)} B; "
+              f"correlation C=128 r=4 {lib.vf_corr_smem_bytes(128, 4, 0)} "
+              f"B, flat C=32 r=3 {lib.vf_corr_smem_bytes(32, 3, 1)} B (of "
               f"232448)", flush=True)
     except Exception:
         traceback.print_exc()
@@ -1327,7 +1414,8 @@ def main() -> int:
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "composed_ms", "device_ms"):
+                    "library_ms", "composed_ms", "device_ms",
+                    "previous_route_ms"):
             entry.setdefault(key, None)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -56,9 +56,11 @@ def test_corr_pyramid(rng):
 
 @pytest.mark.parametrize("N", [70, 10])
 def test_corr_sample_both_branches(rng, N):
-    """N >= 64: full correlation map + windows; N < 64: the kernel
-    route (on the CPU its plain version, a gather). Tracks sit inside, on and across the map borders, so the
-    zero-padded taps (half-in corners included) are exercised."""
+    """The JAX function's two NHWC routes (N >= 64: full correlation map +
+    windows; N < 64: the gather) against the port's kernel route (on the
+    CPU its plain version, a gather). Tracks sit inside, on and across the
+    map borders, so the zero-padded taps (half-in corners included) are
+    exercised."""
     B, S, H, W, C = 1, 2, 12, 14, 16
     fmaps = rng.normal(size=(B, S, H, W, C)).astype(np.float32)
     coords = rng.uniform(-3, 16, size=(B, S, N, 2)).astype(np.float32)
@@ -70,14 +72,48 @@ def test_corr_sample_both_branches(rng, N):
 
 
 def test_corr_sample_few_tracks_reaches_the_kernel_off_cpu():
-    """Off the CPU, fewer than 64 tracks go to the correlation kernel's
-    wrapper, not to a plain stand-in: without a GPU its build raises."""
+    """Off the CPU the correlation goes to the kernel's wrapper, not to a
+    plain stand-in: without a GPU its build raises."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     pyr = [torch.empty(1, 2, 8, 8, 16, device="meta")]
     with pytest.raises(RuntimeError, match="nvcc"):
         ttr.corr_sample(pyr, torch.empty(1, 2, 10, 2, device="meta"),
                         torch.empty(1, 2, 10, 16, device="meta"), 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flat_correlation_in_both_dtypes(rng, dtype):
+    """The fine path's flat channel-first correlation, one track per
+    patch over 3 levels (15^2, 7^2, 3^2), against `jtr.corr_sample_flat` on
+    the same pyramid. f32: 1e-5. bf16: the JAX function rounds its
+    full correlation map and the window's combine to bf16, the port once at
+    the end: tests/test_torch_corr.py `bf16_bound` (2^-5 of the four
+    cells' sum of |products| / sqrt(C))."""
+    from tests.test_torch_corr import bf16_bound
+
+    B, S, C, H, W, N, r = 5, 4, 32, 15, 15, 1, 3
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    x = jnp.asarray(rng.normal(size=(B, S, C, H * W))).astype(jdt)
+    coords = rng.uniform(-1, 16, size=(B, S, N, 2)).astype(np.float32)
+    jf = jnp.asarray(rng.normal(size=(B, S, N, C))).astype(jdt)
+    jl, jh = jtr.build_corr_pyramid_flat(x, (H, W), 3)
+    ref = _t(np.asarray(jtr.corr_sample_flat(jl, jh, jnp.asarray(coords),
+                                             jf, r)).astype(np.float32))
+    tl = [_t(np.asarray(lv).astype(np.float32)).to(dtype) for lv in jl]
+    tf = _t(np.asarray(jf).astype(np.float32)).to(dtype)
+    out = ttr.corr_sample_flat(tl, jh, _t(coords), tf, r)
+    assert out.dtype == dtype and out.shape == ref.shape
+    err = (out.float() - ref).abs().reshape(B * S, N, -1)
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5
+        return
+    maps = [lv.reshape(B * S, C, h, w).permute(0, 2, 3, 1)
+            for lv, (h, w) in zip(tl, jh)]
+    bound = bf16_bound(maps, _t(coords).reshape(B * S, N, 2),
+                       tf.reshape(B * S, N, C), r)
+    assert bool((err <= bound).all()), float((err / bound).max())
 
 
 def test_flat_correlation_and_sampling(rng):

@@ -3,11 +3,14 @@
 // port's shared library and called through ctypes
 // (vggsfm_tpu_torch/ops/_build.py, vggsfm_tpu_torch/ops/corr.py).
 //
-// The entry point takes the dtype of the map and the features (0 = float32,
-// 1 = bfloat16), device pointers, the shapes and a cudaStream_t. It launches
-// one block per (frame, track) on that stream, allocates nothing, does not
-// synchronise, and returns 0 on success, a negative code for inputs the
-// kernel does not take (check_shape), or the cudaError_t of the launch.
+// The entry point takes the dtype of the maps and the features (0 =
+// float32, 1 = bfloat16), whether the output is bfloat16, the level table
+// (L device pointers, L (H, W) pairs, L (frame, row, column, channel)
+// strides in elements: host arrays), device pointers, the shapes and a
+// cudaStream_t. It launches once for all levels, one warp per (track,
+// level), on that stream; it allocates nothing, does not synchronise, and
+// returns 0 on success, a negative code for inputs the kernel does not
+// take (check_shape, plan), or the cudaError_t of the launch.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -16,61 +19,68 @@
 
 namespace vcorr {
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-    corr_kernel(const T* __restrict__ fmap, const float* __restrict__ coords,
-                const T* __restrict__ feats, float* __restrict__ out, int N,
-                int H, int W, int C, int radius) {
-  extern __shared__ __align__(16) unsigned char corr_smem[];
-  corr_body<T, VEC>(fmap, coords, feats, out, N, H, W, C, radius, corr_smem);
+template <typename T, int V, bool ONE, bool FLAT>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    corr_kernel(const Args a) {
+  extern __shared__ __align__(16) float corr_smem[];
+  corr_body<T, V, ONE, FLAT>(a, corr_smem);
 }
 
-template <typename T, bool VEC>
-int launch(const void* fmap, const void* coords, const void* feats, void* out,
-           int S, int N, int H, int W, int C, int radius,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(C, radius, VEC ? int(16 / sizeof(T)) : 1);
-  corr_kernel<T, VEC><<<S * N, kThreads, smem, stream>>>(
-      static_cast<const T*>(fmap), static_cast<const float*>(coords),
-      static_cast<const T*>(feats), static_cast<float*>(out), N, H, W, C,
-      radius);
+template <typename T, int V, bool ONE, bool FLAT>
+int launch(Args a, cudaStream_t stream) {
+  size_t smem;
+  const unsigned blocks = geometry(a, FLAT, &smem);
+  corr_kernel<T, V, ONE, FLAT><<<blocks, a.wpb * 32, smem, stream>>>(a);
   return int(cudaGetLastError());
 }
 
 template <typename T>
-int launch_any(const void* fmap, const void* coords, const void* feats,
-               void* out, int S, int N, int H, int W, int C, int radius,
-               cudaStream_t stream) {
-  const bool vec = C % int(16 / sizeof(T)) == 0
-                   && reinterpret_cast<uintptr_t>(fmap) % 16 == 0;
-  if (vec)
-    return launch<T, true>(fmap, coords, feats, out, S, N, H, W, C, radius,
-                           stream);
-  return launch<T, false>(fmap, coords, feats, out, S, N, H, W, C, radius,
-                          stream);
+int launch_variant(const Args& a, Variant v, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  switch (v) {
+    case kFlat: return launch<T, 1, false, true>(a, stream);
+    case kVecOne: return launch<T, kVec, true, false>(a, stream);
+    case kScalarOne: return launch<T, 1, true, false>(a, stream);
+    default: return launch<T, 1, false, false>(a, stream);
+  }
 }
 
 }  // namespace vcorr
 
 extern "C" {
 
-int vf_corr_sample(int dtype, const void* fmap, const void* coords,
-                   const void* feats, void* out, int S, int N, int H, int W,
-                   int C, int radius, void* stream) {
-  const int bad = vcorr::check_shape(S, N, H, W, C, radius);
-  if (bad) return bad;
+int vf_corr_sample(int dtype, int out_bf16, int L, const long long* ptrs,
+                   const int* hw, const long long* strides,
+                   const void* coords, const void* feats, long long sfF,
+                   long long sfN, void* out, int F, int N, int C,
+                   int radius, void* stream) {
+  vcorr::Args a;
+  vcorr::Variant v;
+  const int rc = vcorr::make_args(a, &v, dtype, out_bf16, L, ptrs, hw,
+                                  strides, coords, feats, sfF, sfN, out, F,
+                                  N, C, radius);
+  if (rc) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return vcorr::launch_any<float>(fmap, coords, feats, out, S, N, H, W, C,
-                                    radius, st);
-  if (dtype != 1) return -100;
-  return vcorr::launch_any<__nv_bfloat16>(fmap, coords, feats, out, S, N, H,
-                                          W, C, radius, st);
+  if (dtype == 0) return vcorr::launch_variant<float>(a, v, st);
+  return vcorr::launch_variant<__nv_bfloat16>(a, v, st);
+}
+
+// The variant a call with these levels takes (vcorr::Variant), or the
+// negative code of plan; for reports and tests.
+int vf_corr_variant(int dtype, int L, const long long* ptrs, const int* hw,
+                    const long long* strides, int C) {
+  vcorr::Args a{};
+  a.L = L;
+  a.C = C;
+  vcorr::Variant v;
+  const int rc = vcorr::plan(a, ptrs, hw, strides, dtype == 0 ? 4 : 2, &v);
+  return rc ? rc : int(v);
 }
 
 // Shared memory one block takes, for reports and tests.
-size_t vf_corr_smem_bytes(int C, int radius, int tsize) {
-  return vcorr::smem_bytes(C, radius, C % (16 / tsize) == 0 ? 16 / tsize : 1);
+size_t vf_corr_smem_bytes(int C, int radius, int flat) {
+  return size_t(vcorr::warps_per_block(C, radius, flat != 0))
+         * vcorr::warp_floats(C, radius, flat != 0) * sizeof(float);
 }
 
 }  // extern "C"

@@ -155,44 +155,59 @@ int run_block(const void* x, const void* w_in, const void* b_in,
   return 0;
 }
 
-template <typename T>
-int run_corr(const void* fmap, const void* coords, const void* feats,
-             void* out, int S, int N, int H, int W, int C, int radius) {
-  const bool vec = C % int(16 / sizeof(T)) == 0
-                   && reinterpret_cast<uintptr_t>(fmap) % 16 == 0;
-  const size_t smem =
-      vcorr::smem_bytes(C, radius, vec ? int(16 / sizeof(T)) : 1);
-  emu_launch(S * N, vcorr::kThreads, smem, [&](unsigned char* s) {
-    const T* fm = static_cast<const T*>(fmap);
-    const float* xy = static_cast<const float*>(coords);
-    const T* ft = static_cast<const T*>(feats);
-    float* o = static_cast<float*>(out);
-    if (vec)
-      vcorr::corr_body<T, true>(fm, xy, ft, o, N, H, W, C, radius, s);
-    else
-      vcorr::corr_body<T, false>(fm, xy, ft, o, N, H, W, C, radius, s);
+template <typename T, int V, bool ONE, bool FLAT>
+int run_corr(vcorr::Args a) {
+  size_t smem;
+  const unsigned blocks = vcorr::geometry(a, FLAT, &smem);
+  emu_launch(int(blocks), a.wpb * 32, smem, [&](unsigned char* s) {
+    vcorr::corr_body<T, V, ONE, FLAT>(a, reinterpret_cast<float*>(s));
   });
   return 0;
+}
+
+template <typename T>
+int run_corr_variant(const vcorr::Args& a, vcorr::Variant v) {
+  constexpr int kVec = 16 / sizeof(T);
+  switch (v) {
+    case vcorr::kFlat: return run_corr<T, 1, false, true>(a);
+    case vcorr::kVecOne: return run_corr<T, kVec, true, false>(a);
+    case vcorr::kScalarOne: return run_corr<T, 1, true, false>(a);
+    default: return run_corr<T, 1, false, false>(a);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-int vf_corr_sample(int dtype, const void* fmap, const void* coords,
-                   const void* feats, void* out, int S, int N, int H, int W,
-                   int C, int radius) {
-  const int bad = vcorr::check_shape(S, N, H, W, C, radius);
-  if (bad) return bad;
-  if (dtype == 0)
-    return run_corr<float>(fmap, coords, feats, out, S, N, H, W, C, radius);
-  if (dtype != 1) return -100;
-  return run_corr<__nv_bfloat16>(fmap, coords, feats, out, S, N, H, W, C,
-                                 radius);
+int vf_corr_sample(int dtype, int out_bf16, int L, const long long* ptrs,
+                   const int* hw, const long long* strides,
+                   const void* coords, const void* feats, long long sfF,
+                   long long sfN, void* out, int F, int N, int C,
+                   int radius) {
+  vcorr::Args a;
+  vcorr::Variant v;
+  const int rc = vcorr::make_args(a, &v, dtype, out_bf16, L, ptrs, hw,
+                                  strides, coords, feats, sfF, sfN, out, F,
+                                  N, C, radius);
+  if (rc) return rc;
+  if (dtype == 0) return run_corr_variant<float>(a, v);
+  return run_corr_variant<__nv_bfloat16>(a, v);
 }
 
-size_t vf_corr_smem_bytes(int C, int radius, int tsize) {
-  return vcorr::smem_bytes(C, radius, C % (16 / tsize) == 0 ? 16 / tsize : 1);
+int vf_corr_variant(int dtype, int L, const long long* ptrs, const int* hw,
+                    const long long* strides, int C) {
+  vcorr::Args a{};
+  a.L = L;
+  a.C = C;
+  vcorr::Variant v;
+  const int rc = vcorr::plan(a, ptrs, hw, strides, dtype == 0 ? 4 : 2, &v);
+  return rc ? rc : int(v);
+}
+
+size_t vf_corr_smem_bytes(int C, int radius, int flat) {
+  return size_t(vcorr::warps_per_block(C, radius, flat != 0))
+         * vcorr::warp_floats(C, radius, flat != 0) * sizeof(float);
 }
 
 int vf_fused_ln_mlp(int dtype, const void* x, const void* w1, const void* b1,

@@ -2,7 +2,9 @@
 // corr_sample.cuh use, so their device code compiles with a plain C++20
 // compiler and runs on the CPU for
 // testing: one std::thread per CUDA thread, a std::barrier per block for
-// __syncthreads, blocks one after another, bit-exact bfloat16 conversions
+// __syncthreads and one per warp for __syncwarp and __shfl_xor_sync (all
+// 32 lanes converged), blocks one after another, bit-exact bfloat16
+// conversions
 // (round to nearest even). The warp-level PTX (fused_former.cuh) is
 // emulated by its documented per-lane layouts: ldmatrix and
 // mma.sync.m16n8k16 exchange the lanes' registers through a per-warp
@@ -83,6 +85,7 @@ struct EmuWarp {
   const void* addr[32];
   unsigned a[32][4];
   unsigned b[32][2];
+  float f[32];
 };
 
 inline EmuWarp* emu_warps = nullptr;
@@ -135,6 +138,26 @@ inline void mma_16816(float (&d)[4], const unsigned (&a)[4],
     d[i] = s;
   }
   w.bar->arrive_and_wait();
+}
+
+// __syncwarp and the xor shuffle (corr_sample.cuh). Each is a 32-thread
+// barrier of the warp, so all 32 lanes must reach it together
+// (converged), as the kernels call them; a lane that skipped one would
+// deadlock the emulation where the hardware's behaviour is undefined. The
+// shuffle writes the lane's value to the warp's area between two
+// barriers and reads the source lane's.
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp().bar->arrive_and_wait();
+}
+
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x % 32;
+  w.f[lane] = v;
+  w.bar->arrive_and_wait();
+  const float r = w.f[(lane ^ lane_mask) % 32];
+  w.bar->arrive_and_wait();
+  return r;
 }
 
 // cp.async.cg.shared.global (16 bytes), commit_group, wait_group N

@@ -6,9 +6,11 @@ Correlation uses the sample-then-dot form: bilinear interpolation is
 linear, so sampling the correlation surface equals combining the dots of
 the track feature with the (2r+2)^2 integer-grid neighborhood. Taps outside
 the map contribute 0 (grid_sample's zeros padding), including the half-in
-corner taps. Where the JAX package builds one-hot window matrices to avoid
-TPU scalar gathers, this port gathers by index. Calls with fewer than 64
-tracks go to the hand-written correlation kernel (ops/corr.py).
+corner taps. Where the JAX package computes the full correlation map and
+builds one-hot window matrices (TPU costs: DMA issue rate, scalar
+gathers), every correlation call of this port, NHWC or flat channel-first,
+any number of tracks, is one launch of the hand-written correlation kernel
+(ops/corr.py) over all pyramid levels, which reads only the windows' cells.
 """
 
 from __future__ import annotations
@@ -33,12 +35,7 @@ from vggsfm_tpu_torch.models.sampling import (
     sample_features4d,
     subpixel_parabola,
 )
-from vggsfm_tpu_torch.ops.corr import (
-    SMALL_C,
-    corr_sample_kernel,
-    window_from_dots,
-    window_index,
-)
+from vggsfm_tpu_torch.ops.corr import corr_sample_kernel
 
 # ------------------------------------------------------------ pyramids
 
@@ -51,12 +48,14 @@ def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
 
 
 def build_corr_pyramid(fmaps: torch.Tensor, num_levels: int) -> list:
-    """(B, S, H, W, C) -> list of up to `num_levels` maps, 2x avg-pooled.
+    """(B, S, H, W, C) -> list of up to `num_levels` maps, 2x avg-pooled,
+    each contiguous NHWC (the correlation kernel reads every level of a
+    call in one layout).
 
     Stops early once a map is smaller than 2x2 (reference blocks.py:
     355-361); the missing correlation features are zero-padded downstream.
     """
-    pyramid = [fmaps]
+    pyramid = [fmaps.contiguous()]
     x = fmaps.permute(0, 1, 4, 2, 3)  # (B, S, C, H, W)
     for _ in range(num_levels - 1):
         if x.shape[-2] < 2 or x.shape[-1] < 2:
@@ -83,76 +82,29 @@ def build_corr_pyramid_flat(x: torch.Tensor, hw: tuple, num_levels: int):
     return levels, hws
 
 
-# ------------------------------------------------------ window sampling
-
-def _window_from_cmap(cmap: torch.Tensor, centers: torch.Tensor, r: int,
-                      hw: tuple, dt) -> torch.Tensor:
-    """Bilinear (2r+1)^2 windows of scalar correlation maps.
-
-    cmap (..., H*W), centers (..., 2) -> (..., (2r+1)^2) in dtype `dt`.
-    Same function as the JAX package's `_bilinear_window_matmul`.
-    """
-    H, W = hw
-    w = 2 * r + 2
-    idx, ok, frac = window_index(centers, r, H, W)
-    ci = torch.gather(cmap.to(dt), -1, idx) * ok.to(dt)
-    ci = ci.reshape(*ci.shape[:-1], w, w)
-    return window_from_dots(ci, frac.to(dt), r)
-
+# ---------------------------------------------------------- correlation
 
 def corr_sample(pyramid: list, coords: torch.Tensor,
                 track_feats: torch.Tensor, radius: int) -> torch.Tensor:
     """Correlation features (B, S, N, L*(2r+1)^2) of an NHWC pyramid.
 
     pyramid: list of (B, S, Hi, Wi, C); coords (B, S, N, 2) at level-0
-    scale; track_feats (B, S, N, C). Routed per level as the JAX function:
-      * N >= 64 tracks: the full correlation map as one matrix product,
-        then the windows (chunked over tracks so the map stays under
-        ~1 GB);
-      * N == 1, C < 128 and a map of at most 4096 cells (one track per
-        fine patch): the full map as a multiply-reduce, then the window;
-      * every other call: the correlation kernel (ops/corr.py), once per
-        level. With C >= 128 maps and features go in as float32, the
-        `corr_sample_pallas` contract; with C < 128 the map keeps its
-        dtype and the features take it, the `corr_sample_pallas_smallc`
-        contract. Either result is cast to the features' dtype. A caller
-        that iterates hands in the pyramid already in the kernel's dtype,
-        so the cast here copies nothing.
+    scale; track_feats (B, S, N, C). One launch of the correlation kernel
+    for all levels, any N: the maps are read in their dtype, the features
+    take it, and the result comes in the features' dtype. The JAX function
+    routes N >= 64 through the full correlation map and N == 1 fine patches
+    through a full-map reduce; both compute the same taps, and in bf16
+    round the map before the bilinear combine where the kernel rounds once
+    at the end (tests/test_torch_corr.py states the difference).
     """
     B, S, N, _ = coords.shape
     C = track_feats.shape[-1]
-    dt = track_feats.dtype
-    r = radius
-    scale = torch.tensor(float(C), dtype=dt).sqrt()
-    out = []
-    for i, fmap in enumerate(pyramid):
-        _, _, H, W, _ = fmap.shape
-        centers = coords / (2.0 ** i)
-        if N >= 64:
-            fm = fmap.reshape(B, S, H * W, C).to(dt)
-            max_chunk = max(64, (1 << 30) // max(
-                1, B * S * H * W * track_feats.element_size()))
-            chunks = []
-            for n0 in range(0, N, max_chunk):
-                tf_c = track_feats[:, :, n0: n0 + max_chunk]
-                cmap = torch.matmul(tf_c, fm.transpose(-1, -2))
-                chunks.append(_window_from_cmap(
-                    cmap, centers[:, :, n0: n0 + max_chunk], r, (H, W), dt))
-            corr = torch.cat(chunks, dim=2) / scale
-        elif N == 1 and C < SMALL_C and H * W <= 4096:
-            # products in the operands' dtype, summed in f32
-            cmap = (fmap.reshape(B, S, H * W, C) * track_feats).float().sum(-1)
-            corr = _window_from_cmap(cmap[:, :, None], centers, r, (H, W),
-                                     dt) / scale
-        else:
-            kdt = torch.float32 if C >= SMALL_C else fmap.dtype
-            corr = corr_sample_kernel(  # scales by 1/sqrt(C) itself
-                fmap.reshape(B * S, H, W, C).to(kdt).contiguous(),
-                centers.reshape(B * S, N, 2).float().contiguous(),
-                track_feats.reshape(B * S, N, C).to(kdt).contiguous(),
-                r).reshape(B, S, N, -1).to(dt)
-        out.append(corr)
-    return torch.cat(out, dim=-1)
+    levels = [lvl.reshape(B * S, *lvl.shape[2:]) for lvl in pyramid]
+    out = corr_sample_kernel(
+        levels, coords.reshape(B * S, N, 2).float().contiguous(),
+        track_feats.reshape(B * S, N, C).to(levels[0].dtype), radius,
+        out_dtype=track_feats.dtype)
+    return out.reshape(B, S, N, -1)
 
 
 def _sample_flat(x0: torch.Tensor, qp: torch.Tensor, hw: tuple):
@@ -221,16 +173,18 @@ def corr_sample_flat(levels: list, hws: list, coords: torch.Tensor,
     """Correlation features from a flat channel-first pyramid.
 
     levels[i] (B, S, C, HW_i); coords (B, S, N, 2) level-0 scale;
-    track_feats (B, S, N, C) -> (B, S, N, L*(2r+1)^2).
+    track_feats (B, S, N, C) -> (B, S, N, L*(2r+1)^2) in the features'
+    dtype. The kernel reads the levels in place through (H, W, C) strides:
+    one launch, the windows' cells only, no f32 copy of the pyramid.
     """
-    C = track_feats.shape[-1]
-    dt = track_feats.dtype
-    out = []
-    for i, (lvl, hw) in enumerate(zip(levels, hws)):
-        cm = torch.matmul(track_feats.float(), lvl.float())  # (B,S,N,HW)
-        corr = _window_from_cmap(cm, coords / (2.0 ** i), radius, hw, dt)
-        out.append(corr / torch.tensor(float(C), dtype=dt).sqrt())
-    return torch.cat(out, dim=-1)
+    B, S, N, C = track_feats.shape
+    maps = [lvl.reshape(B * S, C, H, W).permute(0, 2, 3, 1)
+            for lvl, (H, W) in zip(levels, hws)]
+    out = corr_sample_kernel(
+        maps, coords.reshape(B * S, N, 2).float().contiguous(),
+        track_feats.reshape(B * S, N, C).to(maps[0].dtype), radius,
+        out_dtype=track_feats.dtype)
+    return out.reshape(B, S, N, -1)
 
 
 def global_match_coords(fmaps: torch.Tensor, query_feats: torch.Tensor,
@@ -460,10 +414,6 @@ class BaseTrackerPredictor(nn.Module):
                 fmaps, (HH, WW), self.corr_levels)
         else:
             pyramid = build_corr_pyramid(fmaps, self.corr_levels)
-            if N < 64 and C >= SMALL_C:
-                # the correlation kernel reads float32 maps at this width
-                # (`corr_sample`): cast the pyramid once, not per iteration
-                pyramid = [lvl.float() for lvl in pyramid]
 
         # one sincos grid for every batch element, sampled with the
         # flattened (1, B*N, 2) query set

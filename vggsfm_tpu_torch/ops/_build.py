@@ -124,8 +124,12 @@ def _declare(lib, with_stream: bool):
     lib.vf_cc_tile.restype = ci
     lib.vf_attn_smem_bytes.argtypes = [ci] * 4
     lib.vf_attn_smem_bytes.restype = ctypes.c_size_t
-    lib.vf_corr_sample.argtypes = [ci] + [vp] * 4 + [ci] * 6 + tail
+    cll = ctypes.c_longlong
+    lib.vf_corr_sample.argtypes = ([ci] * 3 + [vp] * 5 + [cll] * 2 + [vp]
+                                   + [ci] * 4 + tail)
     lib.vf_corr_sample.restype = ci
+    lib.vf_corr_variant.argtypes = [ci, ci, vp, vp, vp, ci]
+    lib.vf_corr_variant.restype = ci
     lib.vf_corr_smem_bytes.argtypes = [ci] * 3
     lib.vf_corr_smem_bytes.restype = ctypes.c_size_t
     return lib
