@@ -72,7 +72,27 @@ prints no result line):
 8. query points: `get_query_points_batched` on the 8 frames at 4096 points
    for 'aliked', 'sift+harris' and 'sp+sift+aliked': the time of each, the
    valid points (all inside the 4-px border), and the ALIKED score map in
-   f32 (TF32 off) on the card against the CPU.
+   f32 (TF32 off) on the card against the CPU;
+9. reconstruct: (a) the preliminary two-view cameras
+   (`estimate_preliminary_cameras`, stock PyTorch) on the oracle of
+   `render_two_plane_scene(8, 1024)`'s planted cameras: 32,768 points on
+   its two planes projected by the port's `project_points`, 0.5 px noise,
+   10% outlier tracks, at the runner's settings (1024 minimal sets,
+   lo_num 128, 4 px): per pair the rotation error under 1 deg, the
+   translation direction |cos| > 0.99, >= 85% of the true tracks inliers;
+   the stage's time, its device operations and the device's busy share
+   (torch.profiler); then GPU vs CPU at 2048 tracks, 128 sets, lo_num 16
+   on the same injected samples (extrinsics within 1e-3, masks equal on
+   >= 99%); (b) `VGGSfMRunner.sparse_reconstruct` on the rendered scene at
+   the matched workload (8 query frames x 4096 ALIKED points, fine
+   tracking, comple_nonvis, bf16, hybrid camera init, seeded weights),
+   warm then timed: every stage's time, the tracks, the inliers per pair,
+   the share of tracks on the planted epipolar lines, the init that won,
+   AUC@30 of the two-view and the chosen cameras (printed, not gated);
+   gates: shapes, finite values, frame 0 at [I | 0], orthonormal
+   rotations, the five kernels' launch counts per tracker call and camera
+   forward; then `center_order` at a reduced size returns the caller's
+   frame order.
 
 Then one JSON line describing each kernel, the card line again, and as the
 last line {"ok": true, "device": {...}}. Needs a CUDA GPU and the repo
@@ -785,17 +805,20 @@ def slice_phase(report: dict, launches: dict) -> None:
     report["slice"]["profile"] = profile_slice(drive, "slice_profile.txt")
 
 
-def profile_slice(drive, table_name) -> dict:
+def profile_slice(drive, table_name, host=True) -> dict:
     """One more run of a slice under torch.profiler: device time by
-    kernel and the device's busy share of the run's wall time. The table
-    goes to smoke_out/<table_name>. Informational: the run before it is
-    the one checked and timed."""
+    kernel, the device's busy share of the run's wall time and its number
+    of device operations (kernel launches and copies). The table goes to
+    smoke_out/<table_name>. `host=False` traces the device alone: reading
+    the host's op events of a 100k-launch run takes most of a minute.
+    Informational: the run before it is the one checked and timed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    activities = ([ProfilerActivity.CPU] if host else []) + [
+        ProfilerActivity.CUDA]
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             drive()
             torch.cuda.synchronize()
@@ -812,6 +835,7 @@ def _report_profile(events, wall, table_name) -> dict:
                       if str(ev.device_type).endswith("CUDA")
                       and _dev_us(ev) > 0), key=_dev_us, reverse=True)
     busy_s = sum(_dev_us(ev) for ev in kernels) / 1e6
+    ops = sum(ev.count for ev in kernels)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, table_name), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
@@ -820,10 +844,11 @@ def _report_profile(events, wall, table_name) -> dict:
     shown = kernels[:8] + [ev for ev in kernels[8:] if "vcorr" in ev.key]
     top = [(ev.key[:60], _dev_us(ev) / 1e3, ev.count) for ev in shown]
     print(f"profile: wall {wall:.3f} s, device busy {busy_s:.3f} s "
-          f"({busy_s / wall:.1%}); top device time:")
+          f"({busy_s / wall:.1%}), {ops} device operations; top device "
+          f"time:")
     for key, ms, n in top:
         print(f"  {ms:9.2f} ms  x{n:<5d} {key}")
-    return {"wall_s": wall, "device_busy_s": busy_s,
+    return {"wall_s": wall, "device_busy_s": busy_s, "device_ops": ops,
             "top": [{"name": k, "ms": ms, "count": n} for k, ms, n in top]}
 
 
@@ -1312,6 +1337,296 @@ def query_points_phase(report: dict) -> None:
         raise AssertionError("ALIKED score maps disagree between GPU and CPU")
 
 
+# ------------------------------------------------------------- phase 9
+
+def oracle_tracks(scene, n_points, noise_px, outlier_frac, seed=0):
+    """Tracks of `n_points` points on the two planes of
+    `render_two_plane_scene` that land inside the frame in every view,
+    projected through the port's `project_points` on the card, with
+    Gaussian pixel noise; the first `outlier_frac` of the tracks are
+    uniform pixels in every frame but the query frame. Returns (tracks
+    (1, S, N, 2), the number of outlier tracks)."""
+    import torch
+
+    from vggsfm_tpu_torch.geometry.cameras import project_points
+
+    extr = torch.as_tensor(scene["extrinsics"], device="cuda")
+    intr = torch.as_tensor(scene["intrinsics"], device="cuda")
+    S, size = extr.shape[0], scene["images"].shape[1]
+    g = torch.Generator().manual_seed(seed)
+    # the planes of render_two_plane_scene's defaults: the background at
+    # z 4 (its texture spans +-3.5; every view sees less than +-2.5), the
+    # foreground square at z 2, 0.7 half-wide
+    pts = []
+    for z, half in ((4.0, 2.5), (2.0, 0.7)):
+        xy = (torch.rand(2 * n_points, 2, generator=g) * 2 - 1) * half
+        pts.append(torch.cat([xy, torch.full((2 * n_points, 1), z)], 1))
+    pts = torch.cat(pts)[torch.randperm(4 * n_points, generator=g)]
+    pix = project_points(pts.cuda(), extr, intr)  # (S, P, 2)
+    inside = ((pix >= 0) & (pix <= size - 1)).all(-1).all(0)
+    keep = torch.nonzero(inside)[:n_points, 0]
+    assert keep.numel() == n_points, f"{keep.numel()} points inside"
+    tracks = pix[:, keep] + noise_px * torch.randn(
+        S, n_points, 2, generator=g).cuda()
+    n_out = int(outlier_frac * n_points)
+    tracks[1:, :n_out] = torch.rand(S - 1, n_out, 2,
+                                    generator=g).cuda() * (size - 1)
+    return tracks[None], n_out
+
+
+def relative_pose_errors_to_frame0(extr, gt):
+    """Per frame s >= 1: the rotation error (degrees) of extr[s] against
+    the planted relative pose gt[s] ∘ gt[0]⁻¹, and |cos| of the angle
+    between their translation directions."""
+    import math
+
+    import torch
+
+    from vggsfm_tpu_torch.geometry.cameras import se3_compose, se3_inverse
+    from vggsfm_tpu_torch.geometry.rotations import so3_geodesic_angle
+
+    rel = se3_compose(gt[1:], se3_inverse(gt[:1]).expand(len(gt) - 1, 3, 4))
+    rot = so3_geodesic_angle(extr[1:, :, :3], rel[:, :, :3]) * 180 / math.pi
+    t, tg = extr[1:, :, 3], rel[:, :, 3]
+    cos = (t * tg).sum(-1) / (t.norm(dim=-1) * tg.norm(dim=-1))
+    return rot, cos.abs()
+
+
+def planted_sampson(scene, track):
+    """Squared Sampson distances (S-1, N) of (S, N, 2) tracks, frame 0
+    against each frame, under the planted cameras' fundamental matrices."""
+    import torch
+
+    from vggsfm_tpu_torch.geometry.cameras import se3_compose, se3_inverse
+    from vggsfm_tpu_torch.twoview.utils import sampson_epipolar_distance
+
+    gt = torch.as_tensor(scene["extrinsics"], dtype=torch.float64)
+    K = torch.as_tensor(scene["intrinsics"][0], dtype=torch.float64)
+    rel = se3_compose(gt[1:], se3_inverse(gt[:1]).expand(len(gt) - 1, 3, 4))
+    t = rel[:, :, 3]
+    zero = torch.zeros_like(t[:, 0])
+    tx = torch.stack([zero, -t[:, 2], t[:, 1], t[:, 2], zero, -t[:, 0],
+                      -t[:, 1], t[:, 0], zero], -1).reshape(-1, 3, 3)
+    Kinv = torch.linalg.inv(K)
+    F = Kinv.T @ tx @ rel[:, :, :3] @ Kinv
+    tr = track.double().cpu()
+    S = tr.shape[0]
+    return sampson_epipolar_distance(tr[:1].expand(S - 1, -1, -1), tr[1:],
+                                     F[:, None])[:, 0].to(track.device)
+
+
+def reconstruct_phase(report: dict, launches: dict) -> None:
+    """(a) The preliminary two-view cameras on the oracle at the runner's
+    size, and on the card against the CPU; (b) `sparse_reconstruct` on the
+    oracle scene at the matched workload. `launches` gets the kernel
+    launch counts of (b)'s timed run."""
+    import dataclasses
+
+    import torch
+
+    from vggsfm_tpu_torch.geometry.metrics import pose_auc30
+    from vggsfm_tpu_torch.ops import fused_mlp as fm
+    from vggsfm_tpu_torch.runner import RunnerConfig, VGGSfMRunner
+    from vggsfm_tpu_torch.twoview.preliminary import (
+        estimate_preliminary_cameras,
+    )
+    from vggsfm_tpu_torch.twoview.utils import generate_samples
+    from vggsfm_tpu_torch.utils.synth import render_two_plane_scene
+
+    S, size = 8, 1024
+    t0 = time.perf_counter()
+    scene = render_two_plane_scene(S, size)
+    render_s = time.perf_counter() - t0
+    gt = torch.as_tensor(scene["extrinsics"], device="cuda")
+
+    # (a) the oracle: 32,768 tracks, 0.5 px noise, 10% outliers
+    N = 32768
+    tracks, n_out = oracle_tracks(scene, N, 0.5, 0.1)
+    vis = torch.ones(tracks.shape[:3], device="cuda")
+
+    def stage(tr, vi, iters, lo, **kw):
+        return estimate_preliminary_cameras(
+            tr, vi, size, size, tracks_score=vi, max_error=4.0, lo_num=lo,
+            max_ransac_iters=iters, **kw)
+
+    def run_full():
+        return stage(tracks, vis, 1024, 128,
+                     generator=torch.Generator().manual_seed(1))
+
+    run_full()  # first run: cuBLAS set-up, allocator warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = run_full()
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    prof = profile_slice(run_full, "preliminary_profile.txt", host=False)
+    rot, tcos = relative_pose_errors_to_frame0(pre["extrinsics"][0], gt)
+    inl = pre["fmat_inlier_mask"][0, :, n_out:].float().mean(-1)
+    ok = (bool((rot < 1.0).all()) and bool((tcos > 0.99).all())
+          and bool((inl >= 0.85).all()))
+    print(f"reconstruct (a): preliminary on the oracle, {S - 1} pairs x {N} "
+          f"tracks (10% outliers, 0.5 px noise), 1024 minimal sets, lo_num "
+          f"128: {pre_s:.3f} s on the card; rotation error "
+          f"{[round(float(x), 4) for x in rot]} deg (< 1), translation "
+          f"|cos| {[round(float(x), 5) for x in tcos]} (> 0.99), inliers of "
+          f"the true tracks {[round(float(x), 4) for x in inl]} (>= 0.85) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    report["reconstruct_oracle"] = {
+        "seconds": pre_s, "peak_mem_gib": peak_gb, "profile": prof,
+        "rot_err_deg": rot.tolist(), "t_abs_cos": tcos.tolist(),
+        "inlier_frac": inl.tolist()}
+    if not ok:
+        raise AssertionError("preliminary cameras miss the planted poses")
+
+    # the same stage at a reduced size (every 16th track: 10% outliers
+    # still) on the card and on the CPU, with the same minimal sets
+    n2 = 2048
+    sub = slice(None, None, N // n2)
+    idx, _ = generate_samples(torch.Generator().manual_seed(2), n2, 128, 7)
+    out = {dev: stage(tracks[:, :, sub].to(dev), vis[:, :, sub].to(dev),
+                      128, 16, sample_idx=idx)
+           for dev in ("cuda", "cpu")}
+    e_err = float((out["cuda"]["extrinsics"].cpu()
+                   - out["cpu"]["extrinsics"]).abs().max())
+    same = float((out["cuda"]["fmat_inlier_mask"].cpu()
+                  == out["cpu"]["fmat_inlier_mask"]).float().mean())
+    ok = e_err <= 1e-3 and same >= 0.99
+    print(f"reconstruct (a): preliminary GPU vs CPU ({n2} tracks, 128 "
+          f"minimal sets, lo_num 16, the same samples): extrinsics max "
+          f"error {e_err:.2e} (<= 1e-3), inlier masks equal on {same:.4f} "
+          f"(>= 0.99) {'ok' if ok else 'FAIL'}", flush=True)
+    report["reconstruct_oracle"].update(gpu_vs_cpu_extr=e_err,
+                                        gpu_vs_cpu_masks=same)
+    if not ok:
+        raise AssertionError("preliminary cameras disagree GPU vs CPU")
+
+    # (b) the slice at the matched workload
+    cfg = RunnerConfig(precision="bf16", query_frame_num=8,
+                       max_query_pts=4096, query_method="aliked",
+                       fine_tracking=True, comple_nonvis=True,
+                       camera_init="hybrid")
+    runner = VGGSfMRunner(cfg, device="cuda")
+    calls = {"coarse": 0, "fine": 0}
+    for name in calls:  # count the tracker calls of each run
+        method = getattr(runner, f"_{name}_track")
+
+        def counted(*a, _m=method, _n=name, **k):
+            calls[_n] += 1
+            return _m(*a, **k)
+
+        setattr(runner, f"_{name}_track", counted)
+    images = scene["images"]
+    t0 = time.perf_counter()
+    runner.sparse_reconstruct(images)  # first run: set-up, model inits
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fm.reset_launch_counts()
+    calls.update(coarse=0, fine=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = runner.sparse_reconstruct(images)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.update(fm.launch_counts)
+    fm.reset_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    nc, nf = calls["coarse"], calls["fine"]
+
+    track, extr, intr = res["pred_track"], res["extrinsics"], res["intrinsics"]
+    P = track.shape[2]
+    assert track.shape == (1, S, P, 2) and P >= 8 * 4096, track.shape
+    assert res["pred_vis"].shape == res["pred_score"].shape == (1, S, P)
+    assert extr.shape == (S, 3, 4) and intr.shape == (S, 3, 3)
+    for k in ("pred_track", "pred_vis", "pred_score", "extrinsics",
+              "intrinsics"):
+        assert bool(torch.isfinite(res[k]).all()), f"non-finite {k}"
+    first = float((extr[0] - torch.eye(3, 4, device="cuda")).abs().max())
+    assert first <= 1e-4, f"frame 0 off [I | 0] by {first}"
+    R = extr[:, :, :3].double()
+    orth = float((R @ R.transpose(1, 2)
+                  - torch.eye(3, dtype=R.dtype, device="cuda")).abs().max())
+    assert orth <= 1e-4, f"rotations off orthonormal by {orth}"
+    # every former block and correlation call on the kernels: per coarse
+    # call 72 blocks, 72 cross-attention tails, 6 correlation launches;
+    # per fine call 24 blocks and 6 flat correlation launches; one camera
+    # forward
+    want = {"fused_transformer_block": 72 * nc + 24 * nf,
+            "fused_ln_mlp": 72 * nc + 8 * fm.WIDE_MLP_KERNELS,
+            "fused_ln_attn": 16 * fm.ATTN_KERNELS,
+            "corr_sample_pallas": 6 * nc, "corr_sample_pallas_smallc": 6 * nf}
+    assert nc >= 8 and nf >= nc, calls
+    assert launches == want, f"launch counts {launches}, expected {want}"
+
+    pre = res["preliminary"]
+    tv = pre["extrinsics"][0]
+    scores = res["init_scores"].tolist()
+    # the tracks against the planted geometry: per pair, the share of the
+    # usable tracks (vis >= 0.05, score >= 0.5) within the 4 px Sampson
+    # threshold of the planted fundamental matrix
+    usable = ((res["pred_vis"][0] >= 0.05)
+              & (res["pred_score"][0] >= 0.5))[1:]
+    d = planted_sampson(scene, track[0])
+    true_share = [round(float(x), 4) for x in
+                  ((d <= 16.0) & usable).sum(-1) / usable.sum(-1)]
+    won = "neural" if scores[0] >= scores[1] else "two-view"
+    auc_tv = float(pose_auc30(tv, gt))
+    auc_chosen = float(pose_auc30(extr, gt))
+    inliers = pre["fmat_inlier_mask"][0].sum(-1).tolist()
+    print(f"reconstruct (b): sparse_reconstruct, {S} frames x {size} px, 8 "
+          f"query frames x 4096 ALIKED points, fine tracking, comple_nonvis, "
+          f"bf16, seeded weights: {wall:.3f} s (first run {first_s:.3f} s; "
+          f"scene rendered in {render_s:.1f} s); stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in res["timings"].items())
+          + f"; {P} tracks from {nc} coarse and {nf} fine calls; inliers "
+          f"per pair {inliers}; init support [neural, two-view] {scores}: "
+          f"{won} won; usable tracks within 4 px of the planted epipolar "
+          f"lines per pair {true_share}; AUC@30 against the planted "
+          f"cameras: two-view "
+          f"{auc_tv:.4f}, chosen {auc_chosen:.4f}; peak memory "
+          f"{peak_gb:.2f} GiB; launches {launches}", flush=True)
+    report["reconstruct"] = {
+        "wall_s": wall, "first_run_s": first_s, "stages_s": res["timings"],
+        "tracks": P, "coarse_calls": nc, "fine_calls": nf,
+        "inliers_per_pair": inliers, "planted_inlier_share": true_share,
+        "init_scores": scores, "won": won,
+        "auc30_twoview": auc_tv, "auc30_chosen": auc_chosen,
+        "peak_mem_gib": peak_gb}
+    report["reconstruct"]["profile"] = profile_slice(
+        lambda: runner.sparse_reconstruct(images), "reconstruct_profile.txt",
+        host=False)
+
+    # center_order at a reduced size: with frame 2 ranked first the run
+    # swaps frames 2 and 0 for every stage and its per-frame outputs back,
+    # so it equals the run on the swapped frames, swapped back
+    perm = [2, 1, 0, 3]
+    small = images[:4]
+    runner.cfg = dataclasses.replace(cfg, query_frame_num=2,
+                                     max_query_pts=512, comple_nonvis=False)
+    runner.select_query_frames = lambda im: [0, 2]
+    b = runner.sparse_reconstruct(small[perm])
+    runner.cfg = dataclasses.replace(runner.cfg, center_order=True)
+    runner.select_query_frames = lambda im: [2, 0]
+    a = runner.sparse_reconstruct(small)
+    del runner.select_query_frames
+    runner.cfg = cfg
+    p = torch.as_tensor(perm, device="cuda")
+    t_err = float((a["pred_track"] - b["pred_track"][:, p]).abs().max())
+    e_err = float((a["extrinsics"] - b["extrinsics"][p]).abs().max())
+    anchor = float((a["extrinsics"][2]
+                    - torch.eye(3, 4, device="cuda")).abs().max())
+    ok = (list(a["center_perm"]) == perm and t_err <= 1e-3
+          and e_err <= 1e-3 and anchor <= 1e-4)
+    print(f"reconstruct (b): center_order (4 frames, 2 query frames x 512 "
+          f"points, frame 2 ranked first): the outputs in the caller's "
+          f"frame order, tracks within {t_err:.1e} px and cameras within "
+          f"{e_err:.1e} of the run on the swapped frames, the caller's "
+          f"frame 2 at [I | 0] within {anchor:.1e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("center_order returns another frame order")
+
+
 def main() -> int:
     try:
         import torch
@@ -1387,7 +1702,8 @@ def main() -> int:
 
     extra = {}
     # by main-path slice
-    launches = {"tracker": {}, "camera": {}, "few_tracks": {}}
+    launches = {"tracker": {}, "camera": {}, "few_tracks": {},
+                "reconstruct": {}}
     for phase, fn in (
             ("kernels", lambda: kernel_phase(report, extra)),
             ("correlation kernels",
@@ -1398,7 +1714,9 @@ def main() -> int:
             ("camera agree", lambda: camera_agree_phase(extra)),
             ("few tracks",
              lambda: few_tracks_phase(extra, launches["few_tracks"])),
-            ("query points", lambda: query_points_phase(extra))):
+            ("query points", lambda: query_points_phase(extra)),
+            ("reconstruct",
+             lambda: reconstruct_phase(extra, launches["reconstruct"]))):
         t0 = time.perf_counter()
         try:
             fn()

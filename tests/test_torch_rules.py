@@ -6,6 +6,8 @@
   "cuda" where there is none raises.
 * ops/_build.py imports without CUDA and builds for sm_90a.
 * chip_smoke.py fails without a GPU, and alone in a directory.
+* On a GPU (marked `cuda`, skipped elsewhere): the preliminary cameras on
+  the card agree with the CPU on the same injected RANSAC samples.
 """
 
 import ast
@@ -47,7 +49,13 @@ def test_port_imports_no_jax():
     rel = {os.path.relpath(p, PKG) for p in files}
     assert {"ops/corr.py", "extractors/aliked.py", "extractors/cnn.py",
             "extractors/corners.py", "extractors/dispatch.py",
-            "extractors/dog.py", "extractors/superpoint.py"} <= rel
+            "extractors/dog.py", "extractors/superpoint.py",
+            "utils/precision.py", "geometry/rotations.py",
+            "geometry/distortion.py", "geometry/cameras.py",
+            "geometry/metrics.py", "ops/eigh.py", "ops/svd3.py",
+            "ops/polynomial.py", "ops/triangulation.py", "twoview/utils.py",
+            "twoview/fundamental.py", "twoview/essential.py",
+            "twoview/preliminary.py", "utils/synth.py", "runner.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imports(p)
            if m.split(".")[0] in BANNED]
     assert bad == []
@@ -126,3 +134,58 @@ def test_chip_smoke_fails_without_gpu(tmp_path):
     proc = _run_smoke(alone)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def _two_view_tracks(S=4, N=1024, outliers=0.2, seed=0):
+    """Tracks of N points 4-8 in front of S planted cameras (focal 640,
+    640 x 480 px), 0.5 px noise, the first `outliers` share of each
+    non-query frame's tracks uniform pixels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform([-2, -1.5, 4], [2, 1.5, 8], size=(N, 3))
+    tracks = np.zeros((1, S, N, 2))
+    for s in range(S):
+        a = 0.04 * s
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        cam = X @ R.T + np.array([0.3 * s, 0.02 * s, 0.0])
+        tracks[0, s] = 640 * cam[:, :2] / cam[:, 2:] + [320, 240]
+    tracks += rng.normal(scale=0.5, size=tracks.shape)
+    n_out = int(outliers * N)
+    tracks[0, 1:, :n_out] = rng.uniform([0, 0], [640, 480],
+                                        size=(S - 1, n_out, 2))
+    return torch.as_tensor(tracks, dtype=torch.float32)
+
+
+@pytest.mark.cuda
+def test_preliminary_cameras_gpu_match_cpu():
+    """`estimate_preliminary_cameras` on the card and on the CPU with the
+    same injected samples, TF32 allowed outside the stage: extrinsics
+    within 1e-3, inlier masks equal on 99% of the tracks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vggsfm_tpu_torch.twoview.preliminary import (
+        estimate_preliminary_cameras,
+    )
+    from vggsfm_tpu_torch.twoview.utils import generate_samples
+
+    tracks = _two_view_tracks()
+    vis = torch.ones(tracks.shape[:3])
+    idx, _ = generate_samples(torch.Generator().manual_seed(1),
+                              tracks.shape[2], 256, 7)
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = {dev: estimate_preliminary_cameras(
+            tracks.to(dev), vis.to(dev), 640, 480, max_error=4.0,
+            lo_num=32, max_ransac_iters=256, sample_idx=idx)
+            for dev in ("cuda", "cpu")}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags
+    assert torch.backends.cuda.matmul.allow_tf32 == flags
+    g, c = out["cuda"], out["cpu"]
+    assert float((g["extrinsics"].cpu() - c["extrinsics"]).abs().max()) \
+        <= 1e-3
+    same = (g["fmat_inlier_mask"].cpu() == c["fmat_inlier_mask"])
+    assert float(same.float().mean()) >= 0.99

@@ -1,22 +1,30 @@
 """Camera model and the camera predictor's pose codec (PyTorch).
-Counterpart of vggsfm_tpu/geometry/cameras.py:34-86, 164-251 (reference
-vggsfm/models/utils.py:38-201, vggsfm/utils/metric.py:233-302).
+Counterpart of vggsfm_tpu/geometry/cameras.py (reference
+vggsfm/utils/triangulation_helpers.py:311-428, vggsfm/models/utils.py:
+38-201, vggsfm/utils/metric.py:233-302).
 
 A camera is an OpenCV world->camera extrinsic (..., 3, 4) ``[R | t]`` and an
 intrinsic (..., 3, 3) ``[[fx, 0, cx], [0, fy, cy], [0, 0, 1]]``. The JAX
 package pins these products to full f32 (``precision='highest'``); here the
 3x3 products are written out elementwise (`_mm`), so they are f32 on any
-device whatever the TF32 settings.
+device whatever the TF32 settings; the products over points run under
+`f32_matmuls` (TF32 off). ``extra_params`` (..., K) is radial distortion,
+K in {1, 2, 4} (SIMPLE_RADIAL / RADIAL / OPENCV).
 """
 
 from __future__ import annotations
 
 import torch
 
+from vggsfm_tpu_torch.geometry.distortion import (
+    apply_distortion,
+    undistort_points,
+)
 from vggsfm_tpu_torch.geometry.rotations import (
     matrix_to_quaternion,
     quaternion_to_matrix,
 )
+from vggsfm_tpu_torch.utils.precision import f32_matmuls
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -53,6 +61,67 @@ def se3_compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Ra, ta = a[..., :3, :3], a[..., :3, 3:4]
     Rb, tb = b[..., :3, :3], b[..., :3, 3:4]
     return torch.cat([_mm(Ra, Rb), _mm(Ra, tb) + ta], dim=-1)
+
+
+def camera_centers(extrinsic: torch.Tensor) -> torch.Tensor:
+    """Projection centres C = -Rᵀ t of (..., 3, 4) extrinsics -> (..., 3)."""
+    R = extrinsic[..., :3, :3]
+    t = extrinsic[..., :3, 3:]
+    return -_mm(R.transpose(-1, -2), t)[..., 0]
+
+
+def img_from_cam(intrinsics: torch.Tensor, points_cam: torch.Tensor,
+                 extra_params: torch.Tensor | None = None,
+                 default: float = 0.0) -> torch.Tensor:
+    """Camera-space points (..., 3, N) -> pixel coords (..., N, 2);
+    non-finite pixels become `default`."""
+    z = points_cam[..., 2, :]
+    u = points_cam[..., 0, :] / z
+    v = points_cam[..., 1, :] / z
+    if extra_params is not None:
+        u, v = apply_distortion(extra_params, u, v)
+    K = intrinsics[..., None]  # (..., 3, 3, 1) against (..., N)
+    pix = torch.stack([K[..., 0, 0, :] * u + K[..., 0, 1, :] * v
+                       + K[..., 0, 2, :],
+                       K[..., 1, 0, :] * u + K[..., 1, 1, :] * v
+                       + K[..., 1, 2, :]], dim=-1)
+    return torch.nan_to_num(pix, nan=default, posinf=default,
+                            neginf=default)
+
+
+@f32_matmuls
+def project_points(points3D: torch.Tensor, extrinsics: torch.Tensor,
+                   intrinsics: torch.Tensor | None = None,
+                   extra_params: torch.Tensor | None = None,
+                   return_points_cam: bool = False,
+                   only_points_cam: bool = False):
+    """Project world points (P, 3) through B cameras (B, 3, 4) ->
+    pixels (B, P, 2); the camera-space points (B, 3, P) with
+    `return_points_cam`, or alone with `only_points_cam`."""
+    points_cam = (torch.matmul(extrinsics[..., :3], points3D.T)
+                  + extrinsics[..., 3:])
+    if only_points_cam:
+        return points_cam
+    points2D = img_from_cam(intrinsics, points_cam, extra_params)
+    if return_points_cam:
+        return points2D, points_cam
+    return points2D
+
+
+def cam_from_img(tracks: torch.Tensor, intrinsics: torch.Tensor,
+                 extra_params: torch.Tensor | None = None,
+                 undistort_iters: int = 25) -> torch.Tensor:
+    """Pixel coords (..., N, 2) -> normalized camera coords, undistorted
+    when `extra_params` is given."""
+    pp = torch.stack([intrinsics[..., 0, 2], intrinsics[..., 1, 2]],
+                     dim=-1)[..., None, :]
+    fl = torch.stack([intrinsics[..., 0, 0], intrinsics[..., 1, 1]],
+                     dim=-1)[..., None, :]
+    normalized = (tracks - pp) / fl
+    if extra_params is not None:
+        normalized = undistort_points(extra_params, normalized,
+                                      num_iters=undistort_iters)
+    return normalized
 
 
 def _pt3d_to_opencv(R: torch.Tensor, T: torch.Tensor):

@@ -1,5 +1,5 @@
 """Rotation representations (PyTorch). Counterpart of
-vggsfm_tpu/geometry/rotations.py:19-115 (reference
+vggsfm_tpu/geometry/rotations.py (reference
 minipytorch3d/rotation_conversions.py:43-177).
 
 PyTorch3D conventions: quaternions real part first (w, x, y, z), rotation
@@ -62,3 +62,50 @@ def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
 def standardize_quaternion(q: torch.Tensor) -> torch.Tensor:
     """A non-negative real part (q and -q are the same rotation)."""
     return torch.where(q[..., 0:1] < 0, -q, q)
+
+
+def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of quaternions (..., 4), real part first."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def quaternion_invert(q: torch.Tensor) -> torch.Tensor:
+    """Inverse of a unit quaternion (its conjugate)."""
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def axis_angle_to_matrix(axis_angle: torch.Tensor,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """Rodrigues: axis-angle vectors (..., 3) -> matrices (..., 3, 3), as
+    ``I + A(θ) K + B(θ) K²`` with K from the raw vector and A = sinθ/θ,
+    B = (1 - cosθ)/θ² Taylor-expanded near zero (smooth at ω = 0)."""
+    x, y, z = axis_angle.unbind(-1)
+    zero = torch.zeros_like(x)
+    K = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
+    K = K.reshape(*axis_angle.shape[:-1], 3, 3)
+    theta2 = (axis_angle * axis_angle).sum(-1)[..., None, None]
+    theta = torch.sqrt(torch.clamp(theta2, min=eps * eps))
+    small = theta2 < eps * eps
+    A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    B = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta))
+                    / torch.clamp(theta2, min=eps * eps))
+    KK = (K[..., :, :, None] * K[..., None, :, :]).sum(-2)
+    eye = torch.eye(3, dtype=axis_angle.dtype, device=axis_angle.device)
+    return eye + A * K + B * KK
+
+
+def so3_geodesic_angle(R1: torch.Tensor, R2: torch.Tensor,
+                       eps: float = 1e-7) -> torch.Tensor:
+    """Angle (radians) of the relative rotation R1ᵀR2, batched (..., 3, 3):
+    only its trace is needed, sum_ij R1_ij R2_ij."""
+    tr = (R1 * R2).sum((-2, -1))
+    cos = torch.clamp((tr - 1.0) / 2.0, -1.0 + eps, 1.0 - eps)
+    return torch.arccos(cos)

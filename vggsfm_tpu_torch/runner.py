@@ -1,10 +1,12 @@
-"""VGGSfMRunner, the first stages of the sparse pipeline: query-frame
+"""VGGSfMRunner, the sparse pipeline up to the SfM solve: query-frame
 ranking, camera initialization, query-point extraction and tracking
 (feature maps -> coarse tracks -> fine tracks, chunked over query points),
-with the re-query of frames that see too few points. Counterpart of those
-parts of vggsfm_tpu/runner.py (`select_query_frames`, `sparse_reconstruct`'s
-step 2, `_fmaps`, `_query_points`, `_coarse_track`, `_fine_track`,
-`predict_tracks`, `_comple_nonvis`, the tracking stage `track_frames`; reference runners/runner.py:344-354,
+the re-query of frames that see too few points, the preliminary two-view
+cameras and the hybrid choice of the SfM's initial cameras. Counterpart of
+those parts of vggsfm_tpu/runner.py (`_score_camera_init`,
+`select_query_frames`, `_fmaps`, `_query_points`, `_coarse_track`,
+`_fine_track`, `predict_tracks`, `_comple_nonvis`, `sparse_reconstruct`'s
+steps 1-5b, `_choose_camera_init`; reference runners/runner.py:292-633,
 1068-1282).
 
 Runs on the GPU unless the caller passes ``device="cpu"``.
@@ -23,10 +25,15 @@ from vggsfm_tpu_torch.extractors.dispatch import (
     get_query_points,
     get_query_points_batched,
 )
-from vggsfm_tpu_torch.geometry.cameras import pose_encoding_to_extri_intri
+from vggsfm_tpu_torch.geometry.cameras import (
+    cam_from_img,
+    pose_encoding_to_extri_intri,
+)
 from vggsfm_tpu_torch.models.camera import CameraPredictor, init_camera_
 from vggsfm_tpu_torch.models.refine import refine_track
 from vggsfm_tpu_torch.models.tracker import TrackerPredictor, init_tracker_
+from vggsfm_tpu_torch.ops.triangulation import triangulate_by_pair
+from vggsfm_tpu_torch.twoview.preliminary import estimate_preliminary_cameras
 from vggsfm_tpu_torch.utils.camera_avg import (
     average_camera_prediction,
     rank_by_dino_similarity,
@@ -36,10 +43,25 @@ from vggsfm_tpu_torch.utils.camera_avg import (
 from vggsfm_tpu_torch.utils.device import resolve_device
 
 
+def _score_camera_init(extr, intr, tracks, vis, fmat_mask, focal_scale):
+    """Init-pair support under a candidate camera set: for the best
+    partner frame, the tracks that are epipolar inliers, in front of both
+    cameras and triangulated at an angle of at least 2 degrees. A focal at
+    or near the decode clamp (0.2x / 5x of `focal_scale`) is a saturated
+    decode, never a real estimate: it scores -1, below even a
+    zero-support competitor. extr (S, 3, 4), intr (S, 3, 3), tracks
+    (S, N, 2), vis (S, N), fmat_mask (S-1, N) -> a 0-d int tensor."""
+    _, cheir, tri = triangulate_by_pair(extr, cam_from_img(tracks, intr))
+    inl = fmat_mask & (vis > 0.05)[1:] & cheir & (tri >= 2.0)
+    f = intr[..., 0, 0]
+    saturated = ((f <= 0.21 * focal_scale) | (f >= 4.9 * focal_scale)).any()
+    return torch.where(saturated, -1, inl.sum(-1).max())
+
+
 @dataclasses.dataclass
 class RunnerConfig:
-    """The query-ranking, camera, query-point and tracking fields of
-    vggsfm_tpu.runner.RunnerConfig."""
+    """The fields of vggsfm_tpu.runner.RunnerConfig that the stages up to
+    the SfM solve read."""
 
     query_frame_num: int = 3
     max_query_pts: int = 4096
@@ -69,6 +91,16 @@ class RunnerConfig:
     matching_init: bool = True
     # 'bf16' runs the neural path in bfloat16, 'f32' in float32
     precision: str = "bf16"
+    # epipolar (Sampson) inlier threshold of the preliminary two-view
+    # fundamental estimation, in px
+    fmat_thres: float = 4.0
+    # SfM initial cameras: 'neural' (camera predictor), 'twoview' (the
+    # preliminary essential-matrix poses) or 'hybrid' (score both by
+    # init-pair support, keep the winner)
+    camera_init: str = "hybrid"
+    # anchor the solve on the top-ranked query frame: swap it with frame 0,
+    # swap the outputs back
+    center_order: bool = False
 
 
 class VGGSfMRunner:
@@ -366,3 +398,124 @@ class VGGSfMRunner:
             if final_trial:
                 break
         return track, vis, score
+
+    @torch.inference_mode()
+    def preliminary(self, track, vis, score, width, height,
+                    sample_idx=None):
+        """The preliminary two-view cameras of (1, S, N) tracks: LORANSAC
+        fundamental matrices of every frame against frame 0 (1024 minimal
+        sets drawn from a CPU generator seeded with `cfg.seed + 1`, or
+        `sample_idx` (1024, 7); `lo_num` 128; Sampson threshold
+        `cfg.fmat_thres`; the fine tracker's scores gate the tracks when
+        fine tracking ran), then E, (R, t) and the cheirality choice. The
+        dict of `estimate_preliminary_cameras`."""
+        cfg = self.cfg
+        with self._stage("preliminary"):
+            return estimate_preliminary_cameras(
+                track, vis, width, height,
+                torch.Generator().manual_seed(cfg.seed + 1),
+                tracks_score=score if cfg.fine_tracking else None,
+                max_error=cfg.fmat_thres, max_ransac_iters=1024,
+                lo_num=128, sample_idx=sample_idx)
+
+    @torch.inference_mode()
+    def _choose_camera_init(self, extr_neural, intr_neural, pre, track,
+                            vis):
+        """The SfM's initial cameras per `cfg.camera_init`: (extrinsics
+        (S, 3, 4), intrinsics (S, 3, 3), scores). 'hybrid' scores the
+        neural cameras and the two-view ones by init-pair support
+        (`_score_camera_init`, the saturation scale being the two-view
+        default focal max(W, H)) and keeps the neural ones where they score
+        at least as high; the choice is made on the device, and `scores`
+        is the (2,) tensor [neural, two-view] (None in the other modes)."""
+        cfg = self.cfg
+        if cfg.camera_init == "neural":
+            return extr_neural, intr_neural, None
+        S = track.shape[1]
+        extr_tv = pre["extrinsics"][0]
+        intr_tv = pre["default_intri"].expand(S, 3, 3)
+        if cfg.camera_init == "twoview":
+            return extr_tv, intr_tv, None
+        if cfg.camera_init != "hybrid":
+            raise ValueError(f"unknown camera_init {cfg.camera_init}")
+        with self._stage("camera_choice"):
+            scale = intr_tv[0, 0, 0]
+            fm = pre["fmat_inlier_mask"][0]
+            s_n = _score_camera_init(extr_neural, intr_neural, track[0],
+                                     vis[0], fm, scale)
+            s_t = _score_camera_init(extr_tv, intr_tv, track[0], vis[0], fm,
+                                     scale)
+            c = s_n >= s_t
+            return (torch.where(c, extr_neural, extr_tv),
+                    torch.where(c, intr_neural, intr_tv),
+                    torch.stack([s_n, s_t]))
+
+    @torch.inference_mode()
+    def sparse_reconstruct(self, images, masks=None):
+        """The sparse pipeline on (S, H, W, 3) images in [0, 1] (uint8
+        images are scaled), up to the SfM solve: the JAX runner's steps 1
+        to 5b in its order and under its `timings` keys: `query_rank`, the
+        `center_order` swap, `camera_init`, `fmaps`, `tracking`
+        (`track_frames`: `query_points`, `coarse`, `fine` within it),
+        `preliminary`, then the camera-init choice (`camera_choice`; the
+        JAX runner leaves the choice untimed). masks: optional (S, H, W)
+        segmentation, pixels above 0.5 invalid for query points.
+
+        Returns the SfM's inputs: ``pred_track`` (1, S, P, 2),
+        ``pred_vis`` and ``pred_score`` (1, S, P), ``preliminary`` (the
+        dict of `preliminary`, in the solve's frame order), the chosen
+        ``extrinsics`` (S, 3, 4) and ``intrinsics`` (S, 3, 3),
+        ``init_scores`` ([neural, two-view] support, or None),
+        ``query_indices`` and ``timings``; with `center_order` the
+        per-frame outputs are swapped back to the caller's frame order and
+        ``center_perm`` is set. The SfM solve (step 6) and the export
+        (step 7) come with the next slice of the port.
+        """
+        cfg = self.cfg
+        x = torch.as_tensor(images if torch.is_tensor(images)
+                            else np.asarray(images)).to(self.device)
+        x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+        images = x[None]
+        S, H, W = images.shape[1:4]
+        self.timings = {}
+
+        # 1. query frames
+        query_indices = self.select_query_frames(images)
+        # 1b. center_order: swap the top-ranked frame with frame 0 (a
+        # self-inverse permutation), swapped back before returning
+        center_perm = None
+        if cfg.center_order and query_indices and query_indices[0] != 0:
+            center = query_indices[0]
+            center_perm = np.arange(S)
+            center_perm[0], center_perm[center] = center, 0
+            images = images[:, torch.as_tensor(center_perm,
+                                               device=self.device)]
+            if masks is not None:
+                masks = np.asarray(masks)[center_perm]
+            query_indices = [center if i == 0 else (0 if i == center else i)
+                             for i in query_indices]
+        # 2. camera init
+        extr0, intr0 = self.camera_init(images, query_indices)
+        # 3. feature maps
+        fmaps = self.fmaps(images)
+        # 4. tracking, with the re-query of short frames
+        with self._stage("tracking"):
+            track, vis, score = self.track_frames(images, fmaps,
+                                                  query_indices, masks)
+        # 5. preliminary two-view cameras
+        pre = self.preliminary(track, vis, score, W, H)
+        # 5b. the SfM's initial cameras
+        extr, intr, scores = self._choose_camera_init(extr0, intr0, pre,
+                                                      track, vis)
+        out = {"pred_track": track, "pred_vis": vis, "pred_score": score,
+               "preliminary": pre, "extrinsics": extr, "intrinsics": intr,
+               "init_scores": scores, "query_indices": query_indices,
+               "timings": dict(self.timings)}
+        if center_perm is not None:
+            perm = torch.as_tensor(center_perm, device=self.device)
+            for k in ("extrinsics", "intrinsics"):
+                out[k] = out[k][perm]
+            for k in ("pred_track", "pred_vis", "pred_score"):
+                out[k] = out[k][:, perm]
+            out["center_perm"] = center_perm
+        return out
