@@ -83,16 +83,30 @@ prints no result line):
    the stage's time, its device operations and the device's busy share
    (torch.profiler); then GPU vs CPU at 2048 tracks, 128 sets, lo_num 16
    on the same injected samples (extrinsics within 1e-3, masks equal on
-   >= 99%); (b) `VGGSfMRunner.sparse_reconstruct` on the rendered scene at
-   the matched workload (8 query frames x 4096 ALIKED points, fine
-   tracking, comple_nonvis, bf16, hybrid camera init, seeded weights),
-   warm then timed: every stage's time, the tracks, the inliers per pair,
-   the share of tracks on the planted epipolar lines, the init that won,
-   AUC@30 of the two-view and the chosen cameras (printed, not gated);
-   gates: shapes, finite values, frame 0 at [I | 0], orthonormal
-   rotations, the five kernels' launch counts per tracker call and camera
-   forward; then `center_order` at a reduced size returns the caller's
-   frame order.
+   >= 99%); (c) the SfM solve (`run_sfm`, stock PyTorch) on those oracle
+   tracks from (a)'s preliminary cameras: its time by parts, host syncs
+   (CUDA sync debug mode), peak memory and a device-only profile; gates:
+   AUC@30 against the planted cameras >= 0.85 and >= 100 valid tracks
+   (bench.py's gate, on tracks of known quality); then GPU vs CPU at 2048
+   tracks with the same PnP draws (relative rotations within 0.1 deg,
+   translation directions within 1 deg, masks equal on >= 99%); (b)
+   `VGGSfMRunner.sparse_reconstruct` on the rendered scene at the matched
+   workload (8 query frames x 4096 ALIKED points, fine tracking,
+   comple_nonvis, bf16, hybrid camera init, seeded weights, the solve
+   with robust_refine 2 and ba_iters 2), warm then timed: every stage's
+   time (the solve by parts), the tracks, the inliers per pair, the share
+   of tracks on the planted epipolar lines, the init that won, AUC@30 of
+   the two-view, the chosen and the solved cameras (printed, not gated);
+   gates: shapes, finite values, >= 100 valid tracks, the initial
+   cameras' frame 0 at [I | 0], orthonormal rotations, the five kernels'
+   launch counts per tracker call and camera forward; then the solve
+   alone on that run's tracks as in (c); then `center_order` at a reduced
+   size returns the caller's frame order;
+10. end to end: (d) `sparse_reconstruct` at the JAX package's CPU
+   end-to-end test's config (6 frames at 512 px, one query frame, 1024
+   sift+harris points, f32, robust_refine 2, ba_iters 2) with its gates:
+   > 50 valid tracks, AUC@30 > 0.85, median relative rotation error
+   < 1.5 deg.
 
 Then one JSON line describing each kernel, the card line again, and as the
 last line {"ok": true, "device": {...}}. Needs a CUDA GPU and the repo
@@ -1415,6 +1429,142 @@ def planted_sampson(scene, track):
                                      F[:, None])[:, 0].to(track.device)
 
 
+def timed_stage(parts: dict):
+    """A `run_sfm` stage hook: the wall time of each part, ending in a
+    device synchronization, into `parts`."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def stage(name):
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+
+    return stage
+
+
+def count_host_syncs(fn):
+    """Run fn() with PyTorch's CUDA sync debug mode on: the number of
+    operations that made the host wait for the device (`.item()`, a
+    tensor read as a bool, a boolean-mask gather, a device-to-host
+    copy)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def sfm_report(label, fn, profile_name) -> dict:
+    """One warm `run_sfm` call, then: a run timed by parts, a device-only
+    profile (busy share, device operations; table to smoke_out/), a run
+    counting the host syncs, with its peak memory. `fn(stage)` runs the
+    solve with that stage hook (or none) and returns its dict. Returns
+    (the timed run's dict, the report)."""
+    import torch
+
+    fn(None)
+    torch.cuda.synchronize()
+    parts = {}
+    t0 = time.perf_counter()
+    out = fn(timed_stage(parts))
+    wall = time.perf_counter() - t0
+    prof = profile_slice(lambda: fn(None), profile_name, host=False)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    syncs = count_host_syncs(lambda: fn(None))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print(f"{label}: run_sfm {wall:.3f} s by parts "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f"; {syncs} host syncs; peak memory {peak:.2f} GiB above its "
+          f"inputs", flush=True)
+    return out, {"wall_s": wall, "parts_s": parts, "host_syncs": syncs,
+                 "peak_mem_gib": peak, "profile": prof}
+
+
+def sfm_oracle(report: dict, scene, tracks, pre) -> None:
+    """(c): `run_sfm` on the oracle tracks from (a)'s preliminary
+    cameras at the matched size, against the planted cameras; then on the
+    card against the CPU at a reduced size."""
+    import torch
+
+    from vggsfm_tpu_torch.geometry.metrics import (
+        pose_auc30,
+        relative_pose_errors,
+    )
+    from vggsfm_tpu_torch.sfm import SfmConfig, run_sfm
+
+    S, N = tracks.shape[1:3]
+    size = scene["images"].shape[1]
+    gt = torch.as_tensor(scene["extrinsics"], device="cuda")
+    extr0 = pre["extrinsics"][0]
+    intr0 = pre["default_intri"].expand(S, 3, 3)
+    fmat = pre["fmat_inlier_mask"][0]
+    vis = torch.ones(S, N, device="cuda")
+
+    def solve(stage, sub=slice(None), dev="cuda"):
+        return run_sfm(extr0.to(dev), intr0.to(dev),
+                       tracks[0][:, sub].to(dev), vis[:, sub].to(dev),
+                       (size, size),
+                       fmat_inlier_mask=fmat[:, sub].to(dev),
+                       score=vis[:, sub].to(dev), cfg=SfmConfig(),
+                       stage=stage)
+
+    out, rep = sfm_report(f"reconstruct (c): the SfM solve on the oracle "
+                          f"({S} frames x {N} tracks)", solve,
+                          "sfm_oracle_profile.txt")
+    auc = float(pose_auc30(out["extrinsics"], gt))
+    auc0 = float(pose_auc30(extr0, gt))
+    valid = int(out["valid_tracks"].sum())
+    r_err, t_err, m = relative_pose_errors(out["extrinsics"], gt)
+    ok = auc >= 0.85 and valid >= 100 and all(
+        bool(torch.isfinite(out[k]).all())
+        for k in ("extrinsics", "intrinsics", "points3d"))
+    print(f"reconstruct (c): valid tracks {valid} (>= 100), AUC@30 against "
+          f"the planted cameras {auc:.4f} (>= 0.85; the preliminary cameras "
+          f"{auc0:.4f}), relative rotation error median "
+          f"{float(r_err[m].median()):.3f} deg, translation "
+          f"{float(t_err[m].median()):.3f} deg, focal "
+          f"{[round(float(f), 1) for f in out['intrinsics'][:, 0, 0]]} "
+          f"(planted {float(scene['intrinsics'][0, 0, 0]):.0f}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    report["sfm_oracle"] = {**rep, "auc30": auc, "auc30_preliminary": auc0,
+                            "valid_tracks": valid}
+    if not ok:
+        raise AssertionError("the SfM solve misses the planted cameras")
+
+    # the card against the CPU at 2048 tracks: the same PnP draws (both
+    # from CPU generators)
+    sub = slice(None, None, N // 2048)
+    g, c = (solve(None, sub, dev) for dev in ("cuda", "cpu"))
+    r_err, t_err, m = relative_pose_errors(g["extrinsics"].cpu(),
+                                           c["extrinsics"])
+    same = {k: float((g[k].cpu() == c[k]).float().mean())
+            for k in ("valid_tracks", "valid_2d_mask", "valid_frame_mask")}
+    rot, tra = float(r_err[m].max()), float(t_err[m].max())
+    ok = rot <= 0.1 and tra <= 1.0 and min(same.values()) >= 0.99
+    print(f"reconstruct (c): run_sfm GPU vs CPU (2048 tracks, the same "
+          f"draws): relative rotations within {rot:.2e} deg (<= 0.1), "
+          f"translation directions within {tra:.2e} deg (<= 1), masks equal "
+          f"on {same} (>= 0.99) {'ok' if ok else 'FAIL'}", flush=True)
+    report["sfm_oracle"].update(gpu_vs_cpu_rot_deg=rot,
+                                gpu_vs_cpu_trans_deg=tra,
+                                gpu_vs_cpu_masks=same)
+    if not ok:
+        raise AssertionError("run_sfm disagrees GPU vs CPU")
+
+
 def reconstruct_phase(report: dict, launches: dict) -> None:
     """(a) The preliminary two-view cameras on the oracle at the runner's
     size, and on the card against the CPU; (b) `sparse_reconstruct` on the
@@ -1424,9 +1574,13 @@ def reconstruct_phase(report: dict, launches: dict) -> None:
 
     import torch
 
-    from vggsfm_tpu_torch.geometry.metrics import pose_auc30
+    from vggsfm_tpu_torch.geometry.metrics import (
+        pose_auc30,
+        relative_pose_errors,
+    )
     from vggsfm_tpu_torch.ops import fused_mlp as fm
     from vggsfm_tpu_torch.runner import RunnerConfig, VGGSfMRunner
+    from vggsfm_tpu_torch.sfm import run_sfm
     from vggsfm_tpu_torch.twoview.preliminary import (
         estimate_preliminary_cameras,
     )
@@ -1501,6 +1655,9 @@ def reconstruct_phase(report: dict, launches: dict) -> None:
     if not ok:
         raise AssertionError("preliminary cameras disagree GPU vs CPU")
 
+    # (c) the SfM solve on the oracle tracks
+    sfm_oracle(report, scene, tracks, pre)
+
     # (b) the slice at the matched workload
     cfg = RunnerConfig(precision="bf16", query_frame_num=8,
                        max_query_pts=4096, query_method="aliked",
@@ -1534,16 +1691,27 @@ def reconstruct_phase(report: dict, launches: dict) -> None:
     nc, nf = calls["coarse"], calls["fine"]
 
     track, extr, intr = res["pred_track"], res["extrinsics"], res["intrinsics"]
+    init_extr = res["init_extrinsics"]
     P = track.shape[2]
     assert track.shape == (1, S, P, 2) and P >= 8 * 4096, track.shape
     assert res["pred_vis"].shape == res["pred_score"].shape == (1, S, P)
-    assert extr.shape == (S, 3, 4) and intr.shape == (S, 3, 3)
+    assert extr.shape == init_extr.shape == (S, 3, 4)
+    assert intr.shape == res["init_intrinsics"].shape == (S, 3, 3)
+    assert res["points3d"].shape == (P, 3)
+    assert res["valid_2d_mask"].shape == (S, P)
     for k in ("pred_track", "pred_vis", "pred_score", "extrinsics",
-              "intrinsics"):
+              "intrinsics", "init_extrinsics", "init_intrinsics",
+              "points3d"):
         assert bool(torch.isfinite(res[k]).all()), f"non-finite {k}"
-    first = float((extr[0] - torch.eye(3, 4, device="cuda")).abs().max())
+    valid = int(res["valid_tracks"].sum())
+    assert valid >= 100, f"{valid} valid tracks"
+    # the solve's input: frame 0 at [I | 0]; after the normalization the
+    # solve's cameras keep neither t = 0 nor, after pose refinement,
+    # exactly R = I
+    first = float((init_extr[0] - torch.eye(3, 4, device="cuda")
+                   ).abs().max())
     assert first <= 1e-4, f"frame 0 off [I | 0] by {first}"
-    R = extr[:, :, :3].double()
+    R = torch.cat([extr, init_extr])[:, :, :3].double()
     orth = float((R @ R.transpose(1, 2)
                   - torch.eye(3, dtype=R.dtype, device="cuda")).abs().max())
     assert orth <= 1e-4, f"rotations off orthonormal by {orth}"
@@ -1571,7 +1739,9 @@ def reconstruct_phase(report: dict, launches: dict) -> None:
                   ((d <= 16.0) & usable).sum(-1) / usable.sum(-1)]
     won = "neural" if scores[0] >= scores[1] else "two-view"
     auc_tv = float(pose_auc30(tv, gt))
-    auc_chosen = float(pose_auc30(extr, gt))
+    auc_chosen = float(pose_auc30(init_extr, gt))
+    auc_sfm = float(pose_auc30(extr, gt))
+    r0_err = float((extr[0, :, :3] - torch.eye(3, device="cuda")).abs().max())
     inliers = pre["fmat_inlier_mask"][0].sum(-1).tolist()
     print(f"reconstruct (b): sparse_reconstruct, {S} frames x {size} px, 8 "
           f"query frames x 4096 ALIKED points, fine tracking, comple_nonvis, "
@@ -1583,18 +1753,30 @@ def reconstruct_phase(report: dict, launches: dict) -> None:
           f"{won} won; usable tracks within 4 px of the planted epipolar "
           f"lines per pair {true_share}; AUC@30 against the planted "
           f"cameras: two-view "
-          f"{auc_tv:.4f}, chosen {auc_chosen:.4f}; peak memory "
-          f"{peak_gb:.2f} GiB; launches {launches}", flush=True)
+          f"{auc_tv:.4f}, chosen {auc_chosen:.4f}, the solve's {auc_sfm:.4f} "
+          f"with {valid} valid tracks (>= 100); the solve's frame 0 off "
+          f"R = I by {r0_err:.1e}; peak memory {peak_gb:.2f} GiB; launches "
+          f"{launches}", flush=True)
     report["reconstruct"] = {
         "wall_s": wall, "first_run_s": first_s, "stages_s": res["timings"],
         "tracks": P, "coarse_calls": nc, "fine_calls": nf,
         "inliers_per_pair": inliers, "planted_inlier_share": true_share,
         "init_scores": scores, "won": won,
         "auc30_twoview": auc_tv, "auc30_chosen": auc_chosen,
+        "auc30_sfm": auc_sfm, "valid_tracks": valid,
         "peak_mem_gib": peak_gb}
     report["reconstruct"]["profile"] = profile_slice(
         lambda: runner.sparse_reconstruct(images), "reconstruct_profile.txt",
         host=False)
+    # the solve alone on this run's tracks and initial cameras
+    with torch.inference_mode():
+        _, report["reconstruct"]["sfm"] = sfm_report(
+            "reconstruct (b): the solve alone", lambda stage: run_sfm(
+                init_extr, res["init_intrinsics"], track[0],
+                res["pred_vis"][0], (size, size),
+                fmat_inlier_mask=pre["fmat_inlier_mask"][0],
+                score=res["pred_score"][0], cfg=runner.sfm_config(),
+                stage=stage), "sfm_profile.txt")
 
     # center_order at a reduced size: with frame 2 ranked first the run
     # swaps frames 2 and 0 for every stage and its per-frame outputs back,
@@ -1612,19 +1794,74 @@ def reconstruct_phase(report: dict, launches: dict) -> None:
     runner.cfg = cfg
     p = torch.as_tensor(perm, device="cuda")
     t_err = float((a["pred_track"] - b["pred_track"][:, p]).abs().max())
-    e_err = float((a["extrinsics"] - b["extrinsics"][p]).abs().max())
-    anchor = float((a["extrinsics"][2]
+    e_err = float((a["init_extrinsics"] - b["init_extrinsics"][p]
+                   ).abs().max())
+    anchor = float((a["init_extrinsics"][2]
                     - torch.eye(3, 4, device="cuda")).abs().max())
+    sfm_rot = float(relative_pose_errors(a["extrinsics"],
+                                         b["extrinsics"][p])[0].max())
     ok = (list(a["center_perm"]) == perm and t_err <= 1e-3
           and e_err <= 1e-3 and anchor <= 1e-4)
     print(f"reconstruct (b): center_order (4 frames, 2 query frames x 512 "
           f"points, frame 2 ranked first): the outputs in the caller's "
-          f"frame order, tracks within {t_err:.1e} px and cameras within "
-          f"{e_err:.1e} of the run on the swapped frames, the caller's "
-          f"frame 2 at [I | 0] within {anchor:.1e} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"frame order, tracks within {t_err:.1e} px and initial cameras "
+          f"within {e_err:.1e} of the run on the swapped frames, the "
+          f"caller's frame 2 at [I | 0] within {anchor:.1e} "
+          f"{'ok' if ok else 'FAIL'}; the solves' relative rotations "
+          f"within {sfm_rot:.2e} deg", flush=True)
     if not ok:
         raise AssertionError("center_order returns another frame order")
+
+
+# ------------------------------------------------------------ phase 10
+
+def end_to_end_phase(report: dict) -> None:
+    """(d): `sparse_reconstruct` on the card at the JAX package's CPU
+    end-to-end test's config and gates (tests/test_e2e_synth.py:71-108):
+    6 frames of `render_two_plane_scene` at 512 px, one query frame, 1024
+    sift+harris points, fine tracking, no re-query, f32, robust_refine 2,
+    ba_iters 2; valid tracks > 50, AUC@30 against the planted cameras >
+    0.85, median relative rotation error < 1.5 deg."""
+    import torch
+
+    from vggsfm_tpu_torch.geometry.metrics import (
+        pose_auc30,
+        relative_pose_errors,
+    )
+    from vggsfm_tpu_torch.runner import RunnerConfig, VGGSfMRunner
+    from vggsfm_tpu_torch.utils.synth import render_two_plane_scene
+
+    scene = render_two_plane_scene(num_frames=6, image_size=512)
+    cfg = RunnerConfig(query_frame_num=1, max_query_pts=1024,
+                       query_method="sift+harris", fine_tracking=True,
+                       comple_nonvis=False, robust_refine=2, ba_iters=2,
+                       precision="f32")
+    runner = VGGSfMRunner(cfg, device="cuda")
+    t0 = time.perf_counter()
+    out = runner.sparse_reconstruct(scene["images"])
+    wall = time.perf_counter() - t0
+    gt = torch.as_tensor(scene["extrinsics"], device="cuda")
+    valid = int(out["valid_tracks"].sum())
+    auc = float(pose_auc30(out["extrinsics"], gt))
+    auc0 = float(pose_auc30(out["init_extrinsics"], gt))
+    r_err, t_err, m = relative_pose_errors(out["extrinsics"], gt)
+    r_med = float(r_err[m].median())
+    ok = valid > 50 and auc > 0.85 and r_med < 1.5
+    print(f"end to end (d): sparse_reconstruct, 6 frames x 512 px, 1024 "
+          f"sift+harris points, f32: {wall:.3f} s (first run), stages "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out["timings"].items()
+                      if not k.startswith("sfm."))
+          + f"; valid tracks {valid} (> 50), AUC@30 {auc:.4f} (> 0.85; the "
+          f"initial cameras {auc0:.4f}), median relative rotation error "
+          f"{r_med:.3f} deg (< 1.5), "
+          f"translation {float(t_err[m].median()):.3f} deg "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    report["end_to_end"] = {"wall_s": wall, "stages_s": out["timings"],
+                            "valid_tracks": valid, "auc30": auc,
+                            "rot_err_median_deg": r_med}
+    if not ok:
+        raise AssertionError("sparse_reconstruct misses the end-to-end "
+                             "gates")
 
 
 def main() -> int:
@@ -1716,7 +1953,8 @@ def main() -> int:
              lambda: few_tracks_phase(extra, launches["few_tracks"])),
             ("query points", lambda: query_points_phase(extra)),
             ("reconstruct",
-             lambda: reconstruct_phase(extra, launches["reconstruct"]))):
+             lambda: reconstruct_phase(extra, launches["reconstruct"])),
+            ("end to end", lambda: end_to_end_phase(extra))):
         t0 = time.perf_counter()
         try:
             fn()

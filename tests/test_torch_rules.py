@@ -7,7 +7,8 @@
 * ops/_build.py imports without CUDA and builds for sm_90a.
 * chip_smoke.py fails without a GPU, and alone in a directory.
 * On a GPU (marked `cuda`, skipped elsewhere): the preliminary cameras on
-  the card agree with the CPU on the same injected RANSAC samples.
+  the card agree with the CPU on the same injected RANSAC samples, and
+  so does the SfM solve on the same PnP draws.
 """
 
 import ast
@@ -55,7 +56,9 @@ def test_port_imports_no_jax():
             "geometry/metrics.py", "ops/eigh.py", "ops/svd3.py",
             "ops/polynomial.py", "ops/triangulation.py", "twoview/utils.py",
             "twoview/fundamental.py", "twoview/essential.py",
-            "twoview/preliminary.py", "utils/synth.py", "runner.py"} <= rel
+            "twoview/preliminary.py", "utils/synth.py", "runner.py",
+            "twoview/pnp.py", "ba/lm.py", "sfm/refine.py",
+            "sfm/triangulator.py", "sfm/normalize.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imports(p)
            if m.split(".")[0] in BANNED]
     assert bad == []
@@ -189,3 +192,39 @@ def test_preliminary_cameras_gpu_match_cpu():
         <= 1e-3
     same = (g["fmat_inlier_mask"].cpu() == c["fmat_inlier_mask"])
     assert float(same.float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_run_sfm_gpu_matches_cpu():
+    """`run_sfm` on the card and on the CPU from the same initial cameras
+    and PnP draws (CPU generators), TF32 allowed outside the solve:
+    relative rotations within 0.1 deg, translation directions within
+    1 deg, the masks equal on 99%."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vggsfm_tpu_torch.geometry.metrics import relative_pose_errors
+    from vggsfm_tpu_torch.sfm import SfmConfig, run_sfm
+
+    S = 4
+    tracks = _two_view_tracks(S=S, N=512)[0]
+    K = torch.tensor([[640.0, 0, 320], [0, 640, 240], [0, 0, 1]])
+    extr = torch.zeros(S, 3, 4)
+    extr[:, :, :3] = torch.eye(3)
+    extr[:, 0, 3] = 0.3 * torch.arange(S)
+    vis = torch.ones(tracks.shape[:2])
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = {dev: run_sfm(extr.to(dev), K.expand(S, 3, 3).to(dev),
+                            tracks.to(dev), vis.to(dev), (640, 480),
+                            cfg=SfmConfig(ba_max_iterations=10))
+               for dev in ("cuda", "cpu")}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags
+    g, c = out["cuda"], out["cpu"]
+    r_err, t_err, m = relative_pose_errors(g["extrinsics"].cpu(),
+                                           c["extrinsics"])
+    assert float(r_err[m].max()) <= 0.1
+    assert float(t_err[m].max()) <= 1.0
+    for k in ("valid_tracks", "valid_2d_mask", "valid_frame_mask"):
+        assert float((g[k].cpu() == c[k]).float().mean()) >= 0.99, k

@@ -2,7 +2,7 @@
 against the JAX package's, on the same seeded inputs, on the CPU:
 twoview/utils.py, fundamental.py, essential.py, preliminary.py, the
 runner's `_score_camera_init` / `_choose_camera_init` and
-`sparse_reconstruct` up to the SfM solve, and utils/synth.py.
+`sparse_reconstruct` through the SfM solve, and utils/synth.py.
 
 The RANSAC minimal sets of the JAX package come from `jax.random`, which
 torch cannot reproduce: the port is handed the indices the JAX
@@ -545,9 +545,10 @@ def test_render_two_plane_scene_is_the_jax_packages():
 
 def test_sparse_reconstruct_equals_its_stages():
     """4 frames, 128 px, 64 points, f32, seeded weights (a tiny camera
-    predictor), one query frame: the keys and shapes, and the same outputs as the stages called in order.
-    With `center_order` and a ranking that puts frame 2 first, the run
-    swaps frames 2 and 0 for every stage and the per-frame outputs
+    predictor), one query frame: the keys and shapes, and the same outputs
+    as the stages called in order, the SfM solve and its normalization
+    included. With `center_order` and a ranking that puts frame 2 first,
+    the run swaps frames 2 and 0 for every stage and the per-frame outputs
     back."""
     from vggsfm_tpu_torch.models.camera import CameraPredictor, init_camera_
 
@@ -567,8 +568,15 @@ def test_sparse_reconstruct_equals_its_stages():
     P = K
     assert out["pred_track"].shape == (1, S, P, 2)
     assert out["pred_vis"].shape == out["pred_score"].shape == (1, S, P)
-    assert out["extrinsics"].shape == (S, 3, 4)
-    assert out["intrinsics"].shape == (S, 3, 3)
+    for k in ("extrinsics", "init_extrinsics"):
+        assert out[k].shape == (S, 3, 4)
+    for k in ("intrinsics", "init_intrinsics"):
+        assert out[k].shape == (S, 3, 3)
+    assert out["points3d"].shape == (P, 3)
+    assert out["valid_tracks"].shape == (P,)
+    assert out["valid_2d_mask"].shape == (S, P)
+    assert out["valid_frame_mask"].shape == (S,)
+    assert out["extra_params"] is None and out["init_idx"].shape == ()
     assert out["init_scores"].shape == (2,)
     assert list(out["center_perm"]) == [2, 1, 0, 3]
     assert out["query_indices"] == [0]
@@ -576,9 +584,12 @@ def test_sparse_reconstruct_equals_its_stages():
                                        "fmat_inlier_mask", "fmat_residuals",
                                        "default_intri"}
     assert {"camera_init", "fmaps", "tracking", "preliminary",
-            "camera_choice"} <= set(out["timings"])
+            "camera_choice", "sfm", "sfm.init_ba", "sfm.refine_poses_0",
+            "sfm.triangulate_and_ba_0", "sfm.iterative_global_ba_1"
+            } <= set(out["timings"])
     for k in ("pred_track", "pred_vis", "pred_score", "extrinsics",
-              "intrinsics"):
+              "intrinsics", "init_extrinsics", "init_intrinsics",
+              "points3d"):
         assert bool(torch.isfinite(out[k]).all()), k
 
     # the same stages in order on the swapped frames
@@ -592,11 +603,17 @@ def test_sparse_reconstruct_equals_its_stages():
     assert torch.equal(out["pred_track"], track[:, perm])
     assert torch.equal(out["pred_vis"], vis[:, perm])
     assert torch.equal(out["pred_score"], score[:, perm])
-    assert torch.equal(out["extrinsics"], e[perm])
-    assert torch.equal(out["intrinsics"], i[perm])
+    assert torch.equal(out["init_extrinsics"], e[perm])
+    assert torch.equal(out["init_intrinsics"], i[perm])
     assert torch.equal(out["init_scores"], scores)
     for k, v in pre.items():
         assert torch.equal(out["preliminary"][k], v), k
+    sol = runner.solve(e, i, track, vis, score, pre, R, R)
+    for k in ("extrinsics", "intrinsics", "valid_frame_mask",
+              "valid_2d_mask"):
+        assert torch.equal(out[k], sol[k][perm]), k
+    for k in ("points3d", "valid_tracks", "init_idx"):
+        assert torch.equal(out[k], sol[k]), k
     # the anchor frame of the solve is the caller's frame 2
-    torch.testing.assert_close(out["extrinsics"][2],
+    torch.testing.assert_close(out["init_extrinsics"][2],
                                torch.eye(3, 4), atol=1e-5, rtol=0)

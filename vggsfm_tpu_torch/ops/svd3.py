@@ -27,8 +27,9 @@ def _normalize(v: torch.Tensor, eps: float = _EPS):
 def _any_orthogonal(u: torch.Tensor) -> torch.Tensor:
     """A unit vector orthogonal to unit vector u: the coordinate axis
     least aligned with u, Gram-Schmidt'ed."""
-    idx = torch.argmin(u.abs(), dim=-1)
-    e = torch.nn.functional.one_hot(idx, 3).to(u.dtype)
+    idx = torch.argmin(u.abs(), dim=-1, keepdim=True)
+    # a comparison, not `one_hot`: that checks its indices on the host
+    e = (idx == torch.arange(3, device=u.device)).to(u.dtype)
     v = e - (e * u).sum(-1, keepdim=True) * u
     return _normalize(v)[0]
 

@@ -1,13 +1,14 @@
-"""VGGSfMRunner, the sparse pipeline up to the SfM solve: query-frame
+"""VGGSfMRunner, the sparse pipeline through the SfM solve: query-frame
 ranking, camera initialization, query-point extraction and tracking
 (feature maps -> coarse tracks -> fine tracks, chunked over query points),
 the re-query of frames that see too few points, the preliminary two-view
-cameras and the hybrid choice of the SfM's initial cameras. Counterpart of
-those parts of vggsfm_tpu/runner.py (`_score_camera_init`,
-`select_query_frames`, `_fmaps`, `_query_points`, `_coarse_track`,
-`_fine_track`, `predict_tracks`, `_comple_nonvis`, `sparse_reconstruct`'s
-steps 1-5b, `_choose_camera_init`; reference runners/runner.py:292-633,
-1068-1282).
+cameras, the hybrid choice of the SfM's initial cameras, the SfM solve and
+its gauge normalization. Counterpart of those parts of
+vggsfm_tpu/runner.py (`_score_camera_init`, `select_query_frames`,
+`_fmaps`, `_query_points`, `_coarse_track`, `_fine_track`,
+`predict_tracks`, `_comple_nonvis`, `sparse_reconstruct`'s steps 1-6 and
+the normalization, `_choose_camera_init`; reference
+runners/runner.py:292-633, 1068-1282).
 
 Runs on the GPU unless the caller passes ``device="cpu"``.
 """
@@ -33,6 +34,8 @@ from vggsfm_tpu_torch.models.camera import CameraPredictor, init_camera_
 from vggsfm_tpu_torch.models.refine import refine_track
 from vggsfm_tpu_torch.models.tracker import TrackerPredictor, init_tracker_
 from vggsfm_tpu_torch.ops.triangulation import triangulate_by_pair
+from vggsfm_tpu_torch.sfm.normalize import normalize_reconstruction
+from vggsfm_tpu_torch.sfm.triangulator import SfmConfig, run_sfm
 from vggsfm_tpu_torch.twoview.preliminary import estimate_preliminary_cameras
 from vggsfm_tpu_torch.utils.camera_avg import (
     average_camera_prediction,
@@ -60,8 +63,8 @@ def _score_camera_init(extr, intr, tracks, vis, fmat_mask, focal_scale):
 
 @dataclasses.dataclass
 class RunnerConfig:
-    """The fields of vggsfm_tpu.runner.RunnerConfig that the stages up to
-    the SfM solve read."""
+    """The fields of vggsfm_tpu.runner.RunnerConfig that the stages
+    through the SfM solve read."""
 
     query_frame_num: int = 3
     max_query_pts: int = 4096
@@ -101,6 +104,16 @@ class RunnerConfig:
     # anchor the solve on the top-ranked query frame: swap it with frame 0,
     # swap the outputs back
     center_order: bool = False
+    # the SfM solve (SfmConfig): camera model, one camera for all frames,
+    # focal refinement, forced pose-refinement rounds, global BA rounds,
+    # reprojection gates in px
+    camera_type: str = "SIMPLE_PINHOLE"
+    shared_camera: bool = False
+    refine_focal: bool = True
+    robust_refine: int = 2
+    ba_iters: int = 2
+    max_reproj_error: float = 4.0
+    init_max_reproj_error: float = 4.0
 
 
 class VGGSfMRunner:
@@ -450,26 +463,59 @@ class VGGSfMRunner:
                     torch.where(c, intr_neural, intr_tv),
                     torch.stack([s_n, s_t]))
 
+    def sfm_config(self) -> SfmConfig:
+        """The solve's options from the runner's."""
+        cfg = self.cfg
+        return SfmConfig(init_max_reproj_error=cfg.init_max_reproj_error,
+                         max_reproj_error=cfg.max_reproj_error,
+                         robust_refine=cfg.robust_refine,
+                         ba_iters=cfg.ba_iters,
+                         shared_camera=cfg.shared_camera,
+                         refine_focal=cfg.refine_focal,
+                         camera_type=cfg.camera_type, seed=cfg.seed)
+
+    @torch.inference_mode()
+    def solve(self, extr, intr, track, vis, score, pre, width, height):
+        """Step 6 of the JAX runner: `run_sfm` from the initial cameras
+        (S, 3, 4), (S, 3, 3) on (1, S, N) tracks, visibility and scores
+        with the preliminary stage's epipolar inliers, under `timings` key
+        `sfm` (its parts under `sfm.<part>`), then the gauge normalization
+        on the registered frames. Returns `run_sfm`'s dict, normalized."""
+        with self._stage("sfm"):
+            out = run_sfm(extr, intr, track[0], vis[0], (width, height),
+                          fmat_inlier_mask=pre["fmat_inlier_mask"][0],
+                          score=score[0], cfg=self.sfm_config(),
+                          stage=lambda name: self._stage(f"sfm.{name}"))
+        out["extrinsics"], out["points3d"], _, _ = normalize_reconstruction(
+            out["extrinsics"], out["points3d"],
+            registered=out["valid_frame_mask"])
+        return out
+
     @torch.inference_mode()
     def sparse_reconstruct(self, images, masks=None):
         """The sparse pipeline on (S, H, W, 3) images in [0, 1] (uint8
-        images are scaled), up to the SfM solve: the JAX runner's steps 1
-        to 5b in its order and under its `timings` keys: `query_rank`, the
-        `center_order` swap, `camera_init`, `fmaps`, `tracking`
-        (`track_frames`: `query_points`, `coarse`, `fine` within it),
-        `preliminary`, then the camera-init choice (`camera_choice`; the
-        JAX runner leaves the choice untimed). masks: optional (S, H, W)
+        images are scaled): the JAX runner's steps 1 to 6 in its order and
+        under its `timings` keys: `query_rank`, the `center_order` swap,
+        `camera_init`, `fmaps`, `tracking` (`track_frames`:
+        `query_points`, `coarse`, `fine` within it), `preliminary`, the
+        camera-init choice (`camera_choice`; the JAX runner leaves the
+        choice untimed), the SfM solve (`sfm`, its parts `sfm.<part>`),
+        then the gauge normalization. masks: optional (S, H, W)
         segmentation, pixels above 0.5 invalid for query points.
 
-        Returns the SfM's inputs: ``pred_track`` (1, S, P, 2),
-        ``pred_vis`` and ``pred_score`` (1, S, P), ``preliminary`` (the
-        dict of `preliminary`, in the solve's frame order), the chosen
-        ``extrinsics`` (S, 3, 4) and ``intrinsics`` (S, 3, 3),
-        ``init_scores`` ([neural, two-view] support, or None),
-        ``query_indices`` and ``timings``; with `center_order` the
-        per-frame outputs are swapped back to the caller's frame order and
-        ``center_perm`` is set. The SfM solve (step 6) and the export
-        (step 7) come with the next slice of the port.
+        Returns the JAX runner's keys: the solve's ``extrinsics``
+        (S, 3, 4, normalized), ``intrinsics`` (S, 3, 3), ``extra_params``
+        (S, K) or None, ``points3d`` (P, 3, normalized), ``valid_tracks``
+        (P,), ``valid_2d_mask`` (S, P), ``valid_frame_mask`` (S,),
+        ``init_idx``; the tracks ``pred_track`` (1, S, P, 2),
+        ``pred_vis`` and ``pred_score`` (1, S, P); and ``preliminary``
+        (the dict of `preliminary`, in the solve's frame order), the
+        chosen initial cameras ``init_extrinsics`` and
+        ``init_intrinsics``, ``init_scores`` ([neural, two-view] support,
+        or None), ``query_indices`` and ``timings``. With `center_order`
+        the per-frame outputs are swapped back to the caller's frame order
+        and ``center_perm`` is set. Colors and the export come with the
+        next slice of the port.
         """
         cfg = self.cfg
         x = torch.as_tensor(images if torch.is_tensor(images)
@@ -507,14 +553,20 @@ class VGGSfMRunner:
         # 5b. the SfM's initial cameras
         extr, intr, scores = self._choose_camera_init(extr0, intr0, pre,
                                                       track, vis)
-        out = {"pred_track": track, "pred_vis": vis, "pred_score": score,
-               "preliminary": pre, "extrinsics": extr, "intrinsics": intr,
-               "init_scores": scores, "query_indices": query_indices,
-               "timings": dict(self.timings)}
+        # 6. the SfM solve, gauge-normalized
+        out = self.solve(extr, intr, track, vis, score, pre, W, H)
+        out.update(pred_track=track, pred_vis=vis, pred_score=score,
+                   preliminary=pre, init_extrinsics=extr,
+                   init_intrinsics=intr, init_scores=scores,
+                   query_indices=query_indices,
+                   timings=dict(self.timings))
         if center_perm is not None:
             perm = torch.as_tensor(center_perm, device=self.device)
-            for k in ("extrinsics", "intrinsics"):
-                out[k] = out[k][perm]
+            for k in ("extrinsics", "intrinsics", "extra_params",
+                      "valid_frame_mask", "valid_2d_mask",
+                      "init_extrinsics", "init_intrinsics"):
+                if out[k] is not None:
+                    out[k] = out[k][perm]
             for k in ("pred_track", "pred_vis", "pred_score"):
                 out[k] = out[k][:, perm]
             out["center_perm"] = center_perm
