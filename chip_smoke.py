@@ -106,7 +106,33 @@ prints no result line):
    end-to-end test's config (6 frames at 512 px, one query frame, 1024
    sift+harris points, f32, robust_refine 2, ba_iters 2) with its gates:
    > 50 valid tracks, AUC@30 > 0.85, median relative rotation error
-   < 1.5 deg.
+   < 1.5 deg;
+11. export: (e) `sparse_reconstruct` at (b)'s matched workload on the
+   same scene with the export to smoke_out/export: image names, square
+   crop parameters, 4096 extra grid points per frame (one per 16 px)
+   tracked over all 8 frames and triangulated, appended to the model, and
+   scene.glb; warm, then timed. Gates: the extra points' 8 coarse calls
+   launch exactly 8 x (72 block + 72 `ln_mlp` + 6 correlation), the rest
+   of the call (b)'s counts; the model read back with the port's reader
+   (the valid frames under their names, tvec the translation, qvec the
+   rotation within 1e-6 beyond its f32 distance from orthonormal, every
+   observation is the track's pixel exactly, the
+   points are the valid tracks seen at least twice with the solve's xyz
+   and colors, then one trackless point per valid extra point;
+   additional_points.npz and scene.glb parse); the colors on the card
+   against the CPU's within 1e-5; finite values; >= 1 valid extra point.
+   Prints the extra points' valid share and stage time, the host export
+   alone (`save_reconstruction` on the same predictions: building the
+   Reconstruction, writing the files) and the call's wall time. Then
+   `triangulate_extra_points` on the card and on the CPU at a reduced
+   size (4 frames, 256 px, f32, TF32 off, the same fmaps and cameras):
+   without the matching init the coarse tracks gated as in the agree
+   phase, with it (argmax near-ties flip between devices) printed, as in
+   the few-tracks phase; points and valid masks printed. Then the scene
+   written as PNGs with its planted cameras as the GT model and
+   `python3 -m vggsfm_tpu_torch.demo DIR --load-gt
+   --glb` in a child process: AUC@30 against the GT >= 0.85, and the
+   model and scene.glb it writes parse.
 
 Then one JSON line describing each kernel, the card line again, and as the
 last line {"ok": true, "device": {...}}. Needs a CUDA GPU and the repo
@@ -1565,6 +1591,18 @@ def sfm_oracle(report: dict, scene, tracks, pre) -> None:
         raise AssertionError("run_sfm disagrees GPU vs CPU")
 
 
+def matched_config(**kw):
+    """The runner's options at bench.py's matched workload: 8 query frames
+    x 4096 ALIKED points, fine tracking, comple_nonvis, bf16, hybrid
+    camera init (the solve at its defaults)."""
+    from vggsfm_tpu_torch.runner import RunnerConfig
+
+    return RunnerConfig(precision="bf16", query_frame_num=8,
+                        max_query_pts=4096, query_method="aliked",
+                        fine_tracking=True, comple_nonvis=True,
+                        camera_init="hybrid", **kw)
+
+
 def reconstruct_phase(report: dict, launches: dict) -> None:
     """(a) The preliminary two-view cameras on the oracle at the runner's
     size, and on the card against the CPU; (b) `sparse_reconstruct` on the
@@ -1579,7 +1617,7 @@ def reconstruct_phase(report: dict, launches: dict) -> None:
         relative_pose_errors,
     )
     from vggsfm_tpu_torch.ops import fused_mlp as fm
-    from vggsfm_tpu_torch.runner import RunnerConfig, VGGSfMRunner
+    from vggsfm_tpu_torch.runner import VGGSfMRunner
     from vggsfm_tpu_torch.sfm import run_sfm
     from vggsfm_tpu_torch.twoview.preliminary import (
         estimate_preliminary_cameras,
@@ -1659,10 +1697,7 @@ def reconstruct_phase(report: dict, launches: dict) -> None:
     sfm_oracle(report, scene, tracks, pre)
 
     # (b) the slice at the matched workload
-    cfg = RunnerConfig(precision="bf16", query_frame_num=8,
-                       max_query_pts=4096, query_method="aliked",
-                       fine_tracking=True, comple_nonvis=True,
-                       camera_init="hybrid")
+    cfg = matched_config()
     runner = VGGSfMRunner(cfg, device="cuda")
     calls = {"coarse": 0, "fine": 0}
     for name in calls:  # count the tracker calls of each run
@@ -1864,6 +1899,343 @@ def end_to_end_phase(report: dict) -> None:
                              "gates")
 
 
+# ------------------------------------------------------------ phase 11
+
+def parse_glb(path) -> dict:
+    """The JSON chunk of a GLB file, after checking its header, its length
+    and that its binary chunk holds every buffer view."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, version, total = struct.unpack("<III", data[:12])
+    assert (magic, version, total) == (0x46546C67, 2, len(data)), "header"
+    jlen, jtype = struct.unpack("<II", data[12:20])
+    assert jtype == 0x4E4F534A, "JSON chunk"
+    gltf = json.loads(data[20: 20 + jlen])
+    blen, btype = struct.unpack("<II", data[20 + jlen: 28 + jlen])
+    assert btype == 0x004E4942 and blen == gltf["buffers"][0]["byteLength"]
+    assert 28 + jlen + blen == len(data), "chunk lengths"
+    for view in gltf["bufferViews"]:
+        assert view["byteOffset"] + view["byteLength"] <= blen
+    return gltf
+
+
+def check_export(out_dir, res, names) -> dict:
+    """The model `sparse_reconstruct` wrote to `out_dir`, read back with
+    the port's reader, against its predictions (frames in the caller's
+    order; square crops at the model's size, so pixels are unchanged):
+    the images are the valid frames under their names; each image's tvec
+    is its translation, its qvec rebuilds its rotation within 1e-6 beyond
+    the f32 rotation's own distance from orthonormal; each observation's xy is
+    the track's at (frame, point) exactly; the tracked points are the
+    valid tracks observed (in valid frames) at least twice, with xyz the
+    solve's; their colors clip(colors x 255); then as many trackless
+    points as valid extra points; additional_points.npz and scene.glb
+    parse. Returns the counts."""
+    import numpy as np
+
+    from vggsfm_tpu_torch.io import read_model
+    from vggsfm_tpu_torch.io.bridge import _quat_to_matrix
+    from vggsfm_tpu_torch.runner import to_host
+
+    h = to_host({k: res[k] for k in (
+        "extrinsics", "points3d", "valid_tracks", "valid_2d_mask",
+        "valid_frame_mask", "pred_track", "colors", "additional_points")})
+    rec = read_model(os.path.join(out_dir, "sparse"))
+    frames = np.nonzero(h["valid_frame_mask"])[0]
+    assert sorted(rec.images) == [int(s) + 1 for s in frames], \
+        f"images {sorted(rec.images)}, valid frames {frames}"
+    pose_err, orth_err = 0.0, 0.0
+    for s in frames:
+        im = rec.images[int(s) + 1]
+        assert im.name == names[s], (im.name, names[s])
+        e = h["extrinsics"][s].astype(np.float64)
+        R = e[:, :3]
+        # the solve's f32 rotation is itself off orthonormal by ~1e-6 (its
+        # BA updates), and a unit quaternion rebuilds an orthonormal one
+        orth_err = max(orth_err, float(np.abs(R @ R.T - np.eye(3)).max()))
+        pose_err = max(pose_err,
+                       float(np.abs(_quat_to_matrix(im.qvec) - R).max()))
+        assert np.array_equal(im.tvec, e[:, 3]), f"frame {s}: tvec"
+        xy = h["pred_track"][0, s, im.point3D_ids].astype(np.float64)
+        assert np.array_equal(im.xys, xy), f"frame {s}: observations"
+    assert pose_err <= 1e-6 + orth_err, \
+        f"qvec off the rotations by {pose_err} (orthonormal to {orth_err})"
+    obs = (h["valid_2d_mask"] & h["valid_tracks"][None]
+           & h["valid_frame_mask"][:, None])
+    want = np.nonzero(obs.sum(0) >= 2)[0]
+    tracked = [p for p in rec.points3D.values() if len(p.image_ids)]
+    assert [p.id for p in tracked] == want.tolist(), "tracked point ids"
+    rgb = np.clip(h["colors"] * 255, 0, 255).astype(np.uint8)
+    for p in tracked:
+        assert np.array_equal(p.xyz, h["points3d"][p.id].astype(np.float64))
+        assert np.array_equal(p.rgb, rgb[p.id]), f"point {p.id}: color"
+    extra = h["additional_points"]
+    n_extra = int(extra["valid"].sum())
+    trackless = [p for p in rec.points3D.values() if not len(p.image_ids)]
+    assert len(trackless) == n_extra, (len(trackless), n_extra)
+    assert [p.id for p in trackless] == list(range(
+        want.max() + 1, want.max() + 1 + n_extra)), "trackless point ids"
+    with np.load(os.path.join(out_dir, "additional_points.npz")) as z:
+        assert z["points3d"].shape == (n_extra, 3)
+        assert int(z["additional_points_num"]) == n_extra
+        assert int(z["sfm_points_num"]) == int(h["valid_tracks"].sum())
+    gltf = parse_glb(os.path.join(out_dir, "scene.glb"))
+    n_glb = gltf["accessors"][0]["count"]
+    assert n_glb == int(h["valid_tracks"].sum()), (n_glb,)
+    return {"images": len(rec.images), "tracked_points": len(tracked),
+            "trackless_points": n_extra, "qvec_err": pose_err,
+            "rotation_orth_err": orth_err, "glb_points": n_glb}
+
+
+def export_phase(report: dict, launches: dict) -> None:
+    """(e) `sparse_reconstruct` at (b)'s matched workload with the export:
+    image names, square crop parameters, 4096 extra grid points per frame
+    tracked over all 8 frames (`extra_pt_pixel_interval` 16), appended to
+    the model, and scene.glb; warm, then timed. `launches` gets the timed
+    run's launch counts. Then `triangulate_extra_points` GPU vs CPU at a
+    reduced size, and the CLI on the scene written as PNGs."""
+    import numpy as np
+    import torch
+
+    from vggsfm_tpu_torch.datasets.demo_loader import crop_parameters
+    from vggsfm_tpu_torch.ops import fused_mlp as fm
+    from vggsfm_tpu_torch.runner import VGGSfMRunner, track_colors
+    from vggsfm_tpu_torch.utils.synth import (
+        render_two_plane_scene,
+        write_scene_folder,
+    )
+
+    S, size, iv = 8, 1024, 16
+    scene = render_two_plane_scene(S, size)
+    images = scene["images"]
+    names = [f"frame_{i:04d}.png" for i in range(S)]
+    crop = np.stack([crop_parameters(size, size, [0, 0, size, size], size,
+                                     size)] * S)
+    runner = VGGSfMRunner(matched_config(
+        img_size=size, extra_pt_pixel_interval=iv, extra_by_neighbor=-1,
+        concat_extra_points=True, make_glb=True), device="cuda")
+    calls = {"coarse": 0, "extra": 0, "fine": 0}
+    coarse, fine = runner._coarse_track, runner._fine_track
+
+    def counted_coarse(fmaps, qp, stage="coarse"):
+        calls["extra" if stage == "extra_points.coarse" else "coarse"] += 1
+        return coarse(fmaps, qp, stage=stage)
+
+    def counted_fine(*a, **k):
+        calls["fine"] += 1
+        return fine(*a, **k)
+
+    extra_launches = {}
+    extra_fn = runner.triangulate_extra_points
+
+    def counted_extra(*a, **k):
+        before = dict(fm.launch_counts)
+        out = extra_fn(*a, **k)
+        extra_launches.update({n: c - before[n]
+                               for n, c in fm.launch_counts.items()})
+        return out
+
+    runner._coarse_track, runner._fine_track = counted_coarse, counted_fine
+    runner.triangulate_extra_points = counted_extra
+    out_dir = os.path.join(OUT_DIR, "export")
+
+    def run():
+        return runner.sparse_reconstruct(images, image_names=names,
+                                          output_dir=out_dir,
+                                          crop_params=crop)
+
+    t0 = time.perf_counter()
+    run()  # first run: set-up, model inits
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    calls.update(coarse=0, extra=0, fine=0)
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.update(fm.launch_counts)
+    fm.reset_launch_counts()
+    nc, nx, nf = calls["coarse"], calls["extra"], calls["fine"]
+
+    # the extra points: 8 coarse calls of 4096 tracks over the 8 frames,
+    # each 72 blocks, 72 cross-attention tails and 6 correlation launches
+    want_x = {"fused_transformer_block": 72 * nx, "fused_ln_mlp": 72 * nx,
+              "fused_ln_attn": 0, "corr_sample_pallas": 6 * nx,
+              "corr_sample_pallas_smallc": 0}
+    assert nx == S, calls
+    assert extra_launches == want_x, \
+        f"extra-point launches {extra_launches}, expected {want_x}"
+    rest = {k: launches[k] - extra_launches[k] for k in launches}
+    want = {"fused_transformer_block": 72 * nc + 24 * nf,
+            "fused_ln_mlp": 72 * nc + 8 * fm.WIDE_MLP_KERNELS,
+            "fused_ln_attn": 16 * fm.ATTN_KERNELS,
+            "corr_sample_pallas": 6 * nc, "corr_sample_pallas_smallc": 6 * nf}
+    assert nc >= runner.cfg.query_frame_num and nf >= nc, calls
+    assert rest == want, f"launch counts {rest}, expected {want}"
+
+    extra = res["additional_points"]
+    N = (size // iv) ** 2
+    assert extra["points3d"].shape == (S * N, 3), extra["points3d"].shape
+    for k in ("extrinsics", "intrinsics", "points3d", "colors"):
+        assert bool(torch.isfinite(res[k]).all()), f"non-finite {k}"
+    for k in ("points3d", "colors"):
+        assert bool(torch.isfinite(extra[k]).all()), f"non-finite extra {k}"
+    n_valid_x = int(extra["valid"].sum())
+    assert n_valid_x >= 1, "no valid extra point"
+    counts = check_export(out_dir, res, names)
+    # the colors against the same formula on the CPU
+    w = res["valid_2d_mask"].cpu()
+    cpu_colors = track_colors(torch.as_tensor(images),
+                              res["pred_track"][0].cpu(), w)
+    c_err = float((res["colors"].cpu() - cpu_colors).abs().max())
+    assert c_err <= 1e-5, f"colors off the CPU's by {c_err}"
+
+    # the host export alone on the same predictions: building the
+    # Reconstruction, then writing the files
+    runner.timings = {}
+    t0 = time.perf_counter()
+    runner.save_reconstruction(res, (size, size), names,
+                               os.path.join(OUT_DIR, "export_again"),
+                               crop_params=crop)
+    save_s = time.perf_counter() - t0
+    build_s = runner.timings["export.build"]
+    write_s = runner.timings["export.write"]
+    tm = res["timings"]
+    print(f"export (e): sparse_reconstruct at (b)'s workload with the "
+          f"export, {S * N} extra grid points ({N} per frame, {nx} coarse "
+          f"calls of {N} tracks over {S} frames): {wall:.3f} s (first run "
+          f"{first_s:.3f} s); stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in tm.items()
+                      if not k.startswith("sfm."))
+          + f"; extra points valid {n_valid_x} of {S * N} "
+          f"({n_valid_x / (S * N):.4f}), stage {tm['extra_points']:.3f} s "
+          f"(its coarse calls {tm['extra_points.coarse']:.3f} s); the "
+          f"export alone on these predictions {save_s:.3f} s (build "
+          f"{build_s:.3f} s, write {write_s:.3f} s); model read back: "
+          f"{counts}; colors vs CPU {c_err:.1e} (<= 1e-5); launches "
+          f"extra points {extra_launches}, the rest {rest} ok", flush=True)
+    report["export"] = {
+        "wall_s": wall, "first_run_s": first_s, "stages_s": tm,
+        "extra_points": S * N, "extra_valid": n_valid_x,
+        "extra_valid_share": n_valid_x / (S * N),
+        "extra_points_s": tm["extra_points"],
+        "export_s": save_s, "export_build_s": build_s,
+        "export_write_s": write_s, "model": counts,
+        "colors_vs_cpu": c_err, "launches_extra": extra_launches}
+    del res, runner
+    torch.cuda.empty_cache()
+
+    extra_points_agreement(report)
+    cli_run(report, scene, write_scene_folder)
+
+
+def extra_points_agreement(report: dict) -> None:
+    """`triangulate_extra_points` on the card and on the CPU at a reduced
+    size (4 frames of `render_two_plane_scene` at 256 px, its planted
+    cameras, f32, TF32 off, 256 grid points per frame), given the same
+    fmaps (the CPU's). Without the matching init the coarse tracks are
+    gated as the agree phase gates them (>= 95% within 1e-2 px in every
+    frame, median <= 1e-3 px); with it, the runner's weights-free mode,
+    printed: its argmax steps flip on near-ties between devices, as in
+    the few-tracks phase. The points and valid masks printed for both."""
+    import torch
+
+    from vggsfm_tpu_torch.utils.synth import render_two_plane_scene
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    S, size = 4, 256
+    scene = render_two_plane_scene(S, size, seed=5)
+    images = torch.as_tensor(scene["images"])[None]
+    extr = torch.as_tensor(scene["extrinsics"], dtype=torch.float32)
+    intr = torch.as_tensor(scene["intrinsics"], dtype=torch.float32)
+    fmaps = make_runner("f32", "cpu", seed=5).fmaps(images)
+
+    def run(dev, matching_init):
+        runner = make_runner("f32", dev, seed=5, matching_init=matching_init)
+        seen = []
+        coarse = runner._coarse_track
+
+        def recorded(f, qp, stage="coarse"):
+            t, v = coarse(f, qp, stage=stage)
+            seen.append(t.cpu())
+            return t, v
+
+        runner._coarse_track = recorded
+        res = runner.triangulate_extra_points(
+            images.to(dev), fmaps.to(dev), extr.to(dev), intr.to(dev),
+            num_extra=256)
+        return torch.cat(seen, 2), {k: v.cpu() for k, v in res.items()}
+
+    lines, rows = [], {}
+    for minit in (False, True):
+        (tg, g), (tc, c) = run("cuda", minit), run("cpu", minit)
+        med, mx, frac = track_agreement(tg, tc)
+        same_valid = float((g["valid"] == c["valid"]).float().mean())
+        both = g["valid"] & c["valid"]
+        rel = ((g["points3d"] - c["points3d"]).norm(dim=-1)
+               / c["points3d"].norm(dim=-1))[both]
+        pts = float((rel <= 1e-3).float().mean()) if both.any() else 1.0
+        rows[minit] = {"median_px": med, "max_px": mx, "frac_1e-2": frac,
+                       "valid_equal": same_valid, "points_1e-3": pts}
+        lines.append(
+            f"matching init {'on' if minit else 'off'}: coarse tracks "
+            f"median {med:.2e} px, max {mx:.2e} px, within 1e-2 px "
+            f"{frac:.4f}; valid masks equal on {same_valid:.4f} (valid "
+            f"{int(g['valid'].sum())} / {int(c['valid'].sum())}), points "
+            f"valid on both within 1e-3 relative {pts:.4f}, median "
+            + (f"{float(rel.median()):.1e}" if both.any() else "-"))
+    off = rows[False]
+    ok = off["frac_1e-2"] >= 0.95 and off["median_px"] <= 1e-3
+    print(f"export (e): triangulate_extra_points GPU vs CPU ({S} frames, "
+          f"{size} px, {S} x 256 grid points, f32, the same fmaps and "
+          f"cameras): {lines[0]} {'ok' if ok else 'FAIL'}; {lines[1]} "
+          f"(printed)", flush=True)
+    report["export_agree"] = {"matching_init_off": rows[False],
+                              "matching_init_on": rows[True]}
+    if not ok:
+        raise AssertionError("GPU and CPU extra-point tracks disagree")
+
+
+def cli_run(report: dict, scene, write_scene_folder) -> None:
+    """The CLI as a user runs it: the scene written as PNGs with its
+    planted cameras as the GT model (sparse/0), then `python3 -m
+    vggsfm_tpu_torch.demo DIR --load-gt --glb` in a child process; gates
+    AUC@30 against the GT >= 0.85 and the files it writes."""
+    scene_dir = os.path.join(OUT_DIR, "export_scene")
+    names = write_scene_folder(scene, scene_dir)
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vggsfm_tpu_torch.demo", scene_dir,
+         "--load-gt", "--glb"], cwd=HERE, env=env, capture_output=True,
+        text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+        raise AssertionError(f"the CLI exited {proc.returncode}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    from vggsfm_tpu_torch.io import read_model
+
+    rec = read_model(os.path.join(scene_dir, "sparse"))
+    assert {im.name for im in rec.images.values()} <= set(names)
+    gltf = parse_glb(os.path.join(scene_dir, "scene.glb"))
+    auc = summary.get("gt_auc30", -1.0)
+    ok = auc >= 0.85 and len(rec.images) >= 2 and len(rec.points3D) >= 100
+    print(f"export (e): python3 -m vggsfm_tpu_torch.demo on the scene as "
+          f"{len(names)} PNGs, --load-gt --glb: {wall:.1f} s in a child "
+          f"process (start-up, weights and its first run included); "
+          f"{len(rec.images)} images, {len(rec.points3D)} points, GLB of "
+          f"{gltf['accessors'][0]['count']} points; gt_auc30 {auc} (>= "
+          f"0.85) {'ok' if ok else 'FAIL'}; summary {summary}", flush=True)
+    report["export_cli"] = {"wall_s": wall, "summary": summary}
+    if not ok:
+        raise AssertionError("the CLI's reconstruction misses the gates")
+
+
 def main() -> int:
     try:
         import torch
@@ -1940,7 +2312,7 @@ def main() -> int:
     extra = {}
     # by main-path slice
     launches = {"tracker": {}, "camera": {}, "few_tracks": {},
-                "reconstruct": {}}
+                "reconstruct": {}, "export": {}}
     for phase, fn in (
             ("kernels", lambda: kernel_phase(report, extra)),
             ("correlation kernels",
@@ -1954,7 +2326,8 @@ def main() -> int:
             ("query points", lambda: query_points_phase(extra)),
             ("reconstruct",
              lambda: reconstruct_phase(extra, launches["reconstruct"])),
-            ("end to end", lambda: end_to_end_phase(extra))):
+            ("end to end", lambda: end_to_end_phase(extra)),
+            ("export", lambda: export_phase(extra, launches["export"]))):
         t0 = time.perf_counter()
         try:
             fn()

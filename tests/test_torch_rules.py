@@ -3,7 +3,7 @@
 * No module of vggsfm_tpu_torch/ (nor chip_smoke.py) imports jax, flax
   or the JAX package.
 * Entry points run on the GPU unless asked for the CPU: asking for
-  "cuda" where there is none raises.
+  "cuda" where there is none raises (the CLI's --device too).
 * ops/_build.py imports without CUDA and builds for sm_90a.
 * chip_smoke.py fails without a GPU, and alone in a directory.
 * On a GPU (marked `cuda`, skipped elsewhere): the preliminary cameras on
@@ -58,7 +58,10 @@ def test_port_imports_no_jax():
             "twoview/fundamental.py", "twoview/essential.py",
             "twoview/preliminary.py", "utils/synth.py", "runner.py",
             "twoview/pnp.py", "ba/lm.py", "sfm/refine.py",
-            "sfm/triangulator.py", "sfm/normalize.py"} <= rel
+            "sfm/triangulator.py", "sfm/normalize.py", "io/__init__.py",
+            "io/colmap.py", "io/bridge.py", "io/glb.py",
+            "datasets/__init__.py", "datasets/demo_loader.py",
+            "demo.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imports(p)
            if m.split(".")[0] in BANNED]
     assert bad == []
@@ -74,6 +77,20 @@ def test_cuda_entry_points_raise_without_gpu():
     with pytest.raises(RuntimeError):
         VGGSfMRunner()  # device defaults to "cuda"
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_demo_cli_raises_without_gpu_unless_asked_for_the_cpu(tmp_path):
+    """`python -m vggsfm_tpu_torch.demo` runs on the GPU by default and
+    raises before it reads the scene where there is none; with
+    `--device cpu` it goes on to the scene (here an empty folder)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from vggsfm_tpu_torch import demo
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        demo.main([str(tmp_path / "missing")])
+    with pytest.raises(FileNotFoundError, match="no images"):
+        demo.main([str(tmp_path), "--device", "cpu"])
 
 
 def test_build_module_imports_without_cuda_and_targets_sm90a():

@@ -1,2 +1,3 @@
-"""PyTorch/CUDA port of vggsfm_tpu (query ranking, camera init and
-tracking)."""
+"""PyTorch/CUDA port of vggsfm_tpu: the sparse pipeline from a folder of
+images to a COLMAP model (`runner.VGGSfMRunner`, `python -m
+vggsfm_tpu_torch.demo`)."""

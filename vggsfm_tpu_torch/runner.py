@@ -1,14 +1,16 @@
-"""VGGSfMRunner, the sparse pipeline through the SfM solve: query-frame
-ranking, camera initialization, query-point extraction and tracking
-(feature maps -> coarse tracks -> fine tracks, chunked over query points),
-the re-query of frames that see too few points, the preliminary two-view
-cameras, the hybrid choice of the SfM's initial cameras, the SfM solve and
-its gauge normalization. Counterpart of those parts of
-vggsfm_tpu/runner.py (`_score_camera_init`, `select_query_frames`,
-`_fmaps`, `_query_points`, `_coarse_track`, `_fine_track`,
-`predict_tracks`, `_comple_nonvis`, `sparse_reconstruct`'s steps 1-6 and
-the normalization, `_choose_camera_init`; reference
-runners/runner.py:292-633, 1068-1282).
+"""VGGSfMRunner, the sparse pipeline from a folder of images to a COLMAP
+model: query-frame ranking, camera initialization, query-point extraction
+and tracking (feature maps -> coarse tracks -> fine tracks, chunked over
+query points), the re-query of frames that see too few points, the
+preliminary two-view cameras, the hybrid choice of the SfM's initial
+cameras, the SfM solve and its gauge normalization, the track colors, the
+extra-point densification and the COLMAP / GLB export, and the scene
+loader around it. Counterpart of vggsfm_tpu/runner.py
+(`_score_camera_init`, `select_query_frames`, `_fmaps`, `_query_points`,
+`_coarse_track`, `_fine_track`, `predict_tracks`, `_comple_nonvis`,
+`sparse_reconstruct`, `_choose_camera_init`, `triangulate_extra_points`,
+`save_reconstruction`, `run_scene`, the checkpoint by path; reference
+runners/runner.py:292-633, 887-911, 1068-1282).
 
 Runs on the GPU unless the caller passes ``device="cpu"``.
 """
@@ -17,23 +19,37 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
+from vggsfm_tpu_torch.datasets.demo_loader import DemoLoader
 from vggsfm_tpu_torch.extractors.dispatch import (
     get_query_points,
     get_query_points_batched,
+    grid_keypoints,
 )
 from vggsfm_tpu_torch.geometry.cameras import (
     cam_from_img,
     pose_encoding_to_extri_intri,
 )
+from vggsfm_tpu_torch.geometry.metrics import pose_auc30
+from vggsfm_tpu_torch.io.bridge import (
+    arrays_to_reconstruction,
+    rescale_reconstruction_to_original,
+)
+from vggsfm_tpu_torch.io.colmap import Point3D, write_model
+from vggsfm_tpu_torch.io.glb import reconstruction_to_glb
 from vggsfm_tpu_torch.models.camera import CameraPredictor, init_camera_
 from vggsfm_tpu_torch.models.refine import refine_track
+from vggsfm_tpu_torch.models.sampling import sample_features4d
 from vggsfm_tpu_torch.models.tracker import TrackerPredictor, init_tracker_
-from vggsfm_tpu_torch.ops.triangulation import triangulate_by_pair
+from vggsfm_tpu_torch.ops.triangulation import (
+    triangulate_by_pair,
+    triangulate_tracks,
+)
 from vggsfm_tpu_torch.sfm.normalize import normalize_reconstruction
 from vggsfm_tpu_torch.sfm.triangulator import SfmConfig, run_sfm
 from vggsfm_tpu_torch.twoview.preliminary import estimate_preliminary_cameras
@@ -61,11 +77,55 @@ def _score_camera_init(extr, intr, tracks, vis, fmat_mask, focal_scale):
     return torch.where(saturated, -1, inl.sum(-1).max())
 
 
+def track_colors(images, tracks, weight):
+    """Mean color of each track: images (S, H, W, 3) sampled bilinearly
+    (border-clamped) at tracks (S, P, 2), averaged over the frames where
+    weight (S, P) holds -> (P, 3); 0 where it holds nowhere."""
+    rgb = sample_features4d(images, tracks)  # S acts as the batch
+    w = weight.to(rgb.dtype)[..., None]
+    return (rgb * w).sum(0) / w.sum(0).clamp(min=1)
+
+
+# what the export reads of the predictions
+EXPORT_KEYS = ("points3d", "extrinsics", "intrinsics", "extra_params",
+                "pred_track", "valid_tracks", "valid_2d_mask",
+                "valid_frame_mask", "colors", "additional_points")
+
+
+def to_host(predictions: dict) -> dict:
+    """The arrays of a predictions dict as numpy: every device tensor
+    (one level of nested dicts too) is copied without blocking, then one
+    synchronization waits for all the copies."""
+    def start(v):
+        if isinstance(v, dict):
+            return {k: start(x) for k, x in v.items()}
+        if torch.is_tensor(v):
+            return v.detach().to("cpu", non_blocking=True)
+        return v
+
+    def finish(v):
+        if isinstance(v, dict):
+            return {k: finish(x) for k, x in v.items()}
+        return v.numpy() if torch.is_tensor(v) else v
+
+    copies = start(predictions)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return finish(copies)
+
+
 @dataclasses.dataclass
 class RunnerConfig:
-    """The fields of vggsfm_tpu.runner.RunnerConfig that the stages
-    through the SfM solve read."""
+    """The fields of vggsfm_tpu.runner.RunnerConfig that the port reads,
+    with its defaults."""
 
+    # the loader's square image side (`run_scene`), and the frame size the
+    # exported model is rescaled from
+    img_size: int = 1024
+    # a reference checkpoint (vggsfm_v2_0_0.bin): its track_predictor.* and
+    # camera_predictor.* entries; a path that does not exist leaves the
+    # seeded weights, as in the JAX runner
+    checkpoint: str | None = None
     query_frame_num: int = 3
     max_query_pts: int = 4096
     # 'auto': aliked with a trained checkpoint (VGGSFM_TPU_ALIKED_CKPT),
@@ -114,12 +174,27 @@ class RunnerConfig:
     ba_iters: int = 2
     max_reproj_error: float = 4.0
     init_max_reproj_error: float = 4.0
+    # the mean color of each track over the frames that see it
+    extract_color: bool = True
+    # grid-point densification: one extra query point every N pixels,
+    # tracked and triangulated without BA (<= 0 disables)
+    extra_pt_pixel_interval: int = -1
+    # append the extra points (trackless) to the exported COLMAP model
+    concat_extra_points: bool = False
+    # track each frame's extra grid only into a window of this many
+    # neighbor frames (<= 0: all frames)
+    extra_by_neighbor: int = -1
+    # drop the frames whose camera failed the solve from the exported model
+    filter_invalid_frame: bool = True
+    # write OUT/scene.glb: the point cloud and the camera frusta
+    make_glb: bool = False
 
 
 class VGGSfMRunner:
     """`state_dict` / `camera_state_dict`: the tracker's and the camera
     predictor's weights (the reference checkpoint's ``track_predictor.*``
-    and ``camera_predictor.*`` entries, prefix stripped); seeded random
+    and ``camera_predictor.*`` entries, prefix stripped); else those of
+    the checkpoint at `cfg.checkpoint` when the path exists; seeded random
     weights otherwise. The camera predictor is built on its first use."""
 
     def __init__(self, cfg: RunnerConfig = RunnerConfig(), device="cuda",
@@ -127,6 +202,17 @@ class VGGSfMRunner:
                  camera_state_dict: dict | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.checkpoint and os.path.exists(cfg.checkpoint):
+            ckpt = torch.load(cfg.checkpoint, map_location="cpu")
+
+            def part(prefix):
+                return {k[len(prefix):]: v for k, v in ckpt.items()
+                        if k.startswith(prefix)} or None
+
+            if state_dict is None:
+                state_dict = part("track_predictor.")
+            if camera_state_dict is None:
+                camera_state_dict = part("camera_predictor.")
         if cfg.precision not in ("bf16", "f32"):
             raise ValueError(f"precision must be 'bf16' or 'f32', got "
                              f"{cfg.precision!r}")
@@ -171,10 +257,10 @@ class VGGSfMRunner:
                                else x).to(self.device, torch.float32)
 
     @torch.inference_mode()
-    def _coarse_track(self, fmaps, qp):
+    def _coarse_track(self, fmaps, qp, stage="coarse"):
         minit = self.cfg.matching_init
         mvis = minit and not self._weights_loaded
-        with self._stage("coarse"):
+        with self._stage(stage):
             preds, vis = self.tracker.coarse_predictor(
                 qp, fmaps, iters=self.cfg.coarse_iters,
                 down_ratio=self.tracker.coarse_down_ratio,
@@ -492,32 +578,46 @@ class VGGSfMRunner:
         return out
 
     @torch.inference_mode()
-    def sparse_reconstruct(self, images, masks=None):
+    def sparse_reconstruct(self, images, masks=None, image_names=None,
+                           output_dir=None, crop_params=None):
         """The sparse pipeline on (S, H, W, 3) images in [0, 1] (uint8
-        images are scaled): the JAX runner's steps 1 to 6 in its order and
-        under its `timings` keys: `query_rank`, the `center_order` swap,
+        images are scaled): the JAX runner's steps in its order and under
+        its `timings` keys: `query_rank`, the `center_order` swap,
         `camera_init`, `fmaps`, `tracking` (`track_frames`:
         `query_points`, `coarse`, `fine` within it), `preliminary`, the
         camera-init choice (`camera_choice`; the JAX runner leaves the
-        choice untimed), the SfM solve (`sfm`, its parts `sfm.<part>`),
-        then the gauge normalization. masks: optional (S, H, W)
-        segmentation, pixels above 0.5 invalid for query points.
+        choice untimed), the SfM solve (`sfm`, its parts `sfm.<part>`) and
+        its gauge normalization, the track colors (`cfg.extract_color`),
+        the extra points (`extra_points`, with `cfg.extra_pt_pixel_interval
+        > 0`; their coarse calls `extra_points.coarse`), and with
+        `output_dir` the export (`export`: `export.build`,
+        `export.write`): `save_reconstruction` and, with `cfg.make_glb`,
+        OUT/scene.glb. masks: optional (S, H, W) segmentation, pixels above
+        0.5 invalid for query points; image_names: the exported images'
+        names; crop_params: (S, 8) rows of the loader, to export in the
+        original images' pixels.
 
         Returns the JAX runner's keys: the solve's ``extrinsics``
         (S, 3, 4, normalized), ``intrinsics`` (S, 3, 3), ``extra_params``
         (S, K) or None, ``points3d`` (P, 3, normalized), ``valid_tracks``
         (P,), ``valid_2d_mask`` (S, P), ``valid_frame_mask`` (S,),
         ``init_idx``; the tracks ``pred_track`` (1, S, P, 2),
-        ``pred_vis`` and ``pred_score`` (1, S, P); and ``preliminary``
-        (the dict of `preliminary`, in the solve's frame order), the
-        chosen initial cameras ``init_extrinsics`` and
-        ``init_intrinsics``, ``init_scores`` ([neural, two-view] support,
-        or None), ``query_indices`` and ``timings``. With `center_order`
-        the per-frame outputs are swapped back to the caller's frame order
-        and ``center_perm`` is set. Colors and the export come with the
-        next slice of the port.
+        ``pred_vis`` and ``pred_score`` (1, S, P); ``colors`` (P, 3) in
+        [0, 1] or None; ``additional_points`` (`triangulate_extra_points`)
+        when asked for; ``total_time`` (s, the export excluded, as in the
+        JAX runner) and ``timings``; and ``preliminary`` (the dict of
+        `preliminary`, in the solve's frame order), the chosen initial
+        cameras ``init_extrinsics`` and ``init_intrinsics``,
+        ``init_scores`` ([neural, two-view] support, or None) and
+        ``query_indices``. Arrays stay tensors on the runner's device.
+
+        With `center_order` every stage and the export run on the swapped
+        frames (image id 1 of the model is the top-ranked frame, under its
+        own name); the per-frame outputs are then swapped back to the
+        caller's frame order and ``center_perm`` is set.
         """
         cfg = self.cfg
+        t_start = time.perf_counter()
         x = torch.as_tensor(images if torch.is_tensor(images)
                             else np.asarray(images)).to(self.device)
         x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
@@ -528,7 +628,8 @@ class VGGSfMRunner:
         # 1. query frames
         query_indices = self.select_query_frames(images)
         # 1b. center_order: swap the top-ranked frame with frame 0 (a
-        # self-inverse permutation), swapped back before returning
+        # self-inverse permutation) for every stage and the export; the
+        # per-frame outputs are swapped back before returning
         center_perm = None
         if cfg.center_order and query_indices and query_indices[0] != 0:
             center = query_indices[0]
@@ -538,6 +639,10 @@ class VGGSfMRunner:
                                                device=self.device)]
             if masks is not None:
                 masks = np.asarray(masks)[center_perm]
+            if image_names is not None:
+                image_names = [image_names[i] for i in center_perm]
+            if crop_params is not None:
+                crop_params = np.asarray(crop_params)[center_perm]
             query_indices = [center if i == 0 else (0 if i == center else i)
                              for i in query_indices]
         # 2. camera init
@@ -555,11 +660,35 @@ class VGGSfMRunner:
                                                       track, vis)
         # 6. the SfM solve, gauge-normalized
         out = self.solve(extr, intr, track, vis, score, pre, W, H)
+        # 7. colors, on the device
+        out["colors"] = (track_colors(images[0], track[0],
+                                      out["valid_2d_mask"])
+                         if cfg.extract_color else None)
         out.update(pred_track=track, pred_vis=vis, pred_score=score,
                    preliminary=pre, init_extrinsics=extr,
                    init_intrinsics=intr, init_scores=scores,
-                   query_indices=query_indices,
-                   timings=dict(self.timings))
+                   query_indices=query_indices)
+        # the extra points, on the normalized cameras
+        if cfg.extra_pt_pixel_interval > 0:
+            iv = cfg.extra_pt_pixel_interval
+            with self._stage("extra_points"):
+                out["additional_points"] = self.triangulate_extra_points(
+                    images, fmaps, out["extrinsics"], out["intrinsics"],
+                    num_extra=max(1, (H // iv) * (W // iv)),
+                    by_neighbor=cfg.extra_by_neighbor,
+                    extra_params=out["extra_params"])
+        out["total_time"] = time.perf_counter() - t_start
+        # the export, in the solve's frame order
+        if output_dir is not None:
+            with self._stage("export"):
+                host = to_host({k: out.get(k) for k in EXPORT_KEYS})
+                self.save_reconstruction(host, (W, H), image_names,
+                                         output_dir, crop_params=crop_params)
+                if cfg.make_glb:
+                    reconstruction_to_glb(
+                        host, os.path.join(output_dir, "scene.glb"),
+                        image_size=(W, H))
+        out["timings"] = dict(self.timings)
         if center_perm is not None:
             perm = torch.as_tensor(center_perm, device=self.device)
             for k in ("extrinsics", "intrinsics", "extra_params",
@@ -571,3 +700,167 @@ class VGGSfMRunner:
                 out[k] = out[k][:, perm]
             out["center_perm"] = center_perm
         return out
+
+    @torch.inference_mode()
+    def triangulate_extra_points(self, images, fmaps, extrinsics,
+                                 intrinsics, num_extra: int = 4096,
+                                 by_neighbor: int = -1, extra_params=None):
+        """Densify (reference runners/runner.py:635-742): every frame
+        queries its own pixel grid (`grid_keypoints`, `num_extra` points),
+        tracked by the coarse tracker over a window of `by_neighbor` frames
+        around it (<= 0: all frames; the frame itself first), in chunks of
+        `max(256, max_points_num // S)` points, then LORANSAC-triangulated
+        against the given cameras (64 pair trials, seed 7 + frame), no BA.
+        A point is valid with at least min(3, window) inlier frames; its
+        color is the mean over the window's frames that see it (visibility
+        above 0.05).
+
+        images (1, S, H, W, 3) in [0, 1], fmaps from `fmaps(images)`,
+        cameras (S, 3, 4), (S, 3, 3), extra_params (S, K) or None. Returns
+        a dict of tensors on the runner's device: ``points3d (S*N, 3)``,
+        ``valid (S*N,)``, ``colors (S*N, 3)``, ``query_frame (S*N,)``.
+        """
+        images = self._to_device(images)
+        extrinsics = self._to_device(extrinsics)
+        intrinsics = self._to_device(intrinsics)
+        if extra_params is not None:
+            extra_params = self._to_device(extra_params)
+        S, H, W = images.shape[1:4]
+        qp = grid_keypoints(H, W, num_extra, device=self.device)[None]
+        N = qp.shape[1]
+        chunk = max(256, self.cfg.max_points_num // S)
+        L = S if by_neighbor <= 0 else max(2, min(S, by_neighbor))
+
+        parts = {"points3d": [], "valid": [], "colors": [],
+                 "query_frame": []}
+        for q in range(S):
+            n0 = 0 if L == S else int(np.clip(q - L // 2, 0, S - L))
+            order = np.arange(n0, n0 + L)
+            rel_q = q - n0
+            order[0], order[rel_q] = order[rel_q], order[0]
+            idx = torch.as_tensor(order, device=self.device)
+            fmaps_q = fmaps[:, idx]
+            tracked = [self._coarse_track(fmaps_q,
+                                          qp[:, start: start + chunk],
+                                          stage="extra_points.coarse")
+                       for start in range(0, N, chunk)]
+            tr = torch.cat([t for t, _ in tracked], dim=2)[0]  # (L, N, 2)
+            vi = torch.cat([v for _, v in tracked], dim=2)[0]
+            tn = cam_from_img(tr, intrinsics[idx],
+                              None if extra_params is None
+                              else extra_params[idx])
+            pts, inl_num, _ = triangulate_tracks(
+                extrinsics[idx], tn, track_vis=vi, max_ransac_iters=64,
+                seed=7 + q)
+            parts["points3d"].append(pts)
+            # a 2-frame window can never reach 3 inliers: require what the
+            # window can support
+            parts["valid"].append(inl_num >= min(3, L))
+            parts["colors"].append(track_colors(images[0, idx], tr,
+                                                vi > 0.05))
+            parts["query_frame"].append(torch.full(
+                (N,), q, dtype=torch.int32, device=self.device))
+        return {k: torch.cat(v) for k, v in parts.items()}
+
+    def save_reconstruction(self, predictions, image_size, image_names,
+                            output_dir, crop_params=None):
+        """Write the COLMAP sparse model OUT/sparse/{cameras,images,
+        points3D}.bin of a predictions dict (tensors or numpy, copied to
+        the host once), in the original images' pixels when crop_params
+        are given (reference runners/runner.py:887-911, :1009-1052);
+        returns the `Reconstruction`. Timed as `export.build` (the
+        Reconstruction) and `export.write` (the files).
+
+        The observations are `valid_2d_mask & valid_tracks`; with
+        `cfg.filter_invalid_frame` the invalid frames' observations are
+        dropped and their images removed. Colors become uint8 (x 255,
+        clipped). With ``additional_points`` in the predictions, their
+        valid points go to OUT/additional_points.npz and, with
+        `cfg.concat_extra_points`, into the model as trackless points
+        after the tracked ones."""
+        cfg = self.cfg
+        p = to_host({k: predictions.get(k) for k in EXPORT_KEYS})
+        extra = p["additional_points"]
+        with self._stage("export.build"):
+            valid = p["valid_tracks"]
+            obs = p["valid_2d_mask"] & valid[None]
+            valid_frames = p["valid_frame_mask"]
+            filter_frames = cfg.filter_invalid_frame and \
+                valid_frames is not None
+            if filter_frames:
+                # no point track may reference a frame about to be removed
+                obs = obs & valid_frames[:, None]
+            colors = p["colors"]
+            rec = arrays_to_reconstruction(
+                p["points3d"], p["extrinsics"], p["intrinsics"],
+                p["pred_track"][0], obs, image_size,
+                extra_params=p["extra_params"],
+                shared_camera=cfg.shared_camera,
+                camera_type=cfg.camera_type, image_names=image_names,
+                colors=(None if colors is None
+                        else np.clip(colors * 255, 0, 255).astype(np.uint8)))
+            if filter_frames:
+                for s in np.nonzero(~valid_frames)[0]:
+                    rec.images.pop(int(s) + 1, None)
+            if extra is not None and cfg.concat_extra_points:
+                # trackless points (reference add_point3D with an empty
+                # Track, runners/runner.py:549-560)
+                next_id = (max(rec.points3D) + 1) if rec.points3D else 1
+                rgb255 = np.clip(extra["colors"] * 255, 0,
+                                 255).astype(np.uint8)
+                for i in np.nonzero(extra["valid"])[0]:
+                    rec.points3D[next_id] = Point3D(
+                        id=next_id,
+                        xyz=np.asarray(extra["points3d"][i], np.float64),
+                        rgb=rgb255[i], error=0.0,
+                        image_ids=np.zeros((0,), np.int32),
+                        point2D_idxs=np.zeros((0,), np.int32))
+                    next_id += 1
+            if crop_params is not None:
+                rec = rescale_reconstruction_to_original(
+                    rec, crop_params, cfg.img_size, image_names=image_names,
+                    shared_camera=cfg.shared_camera)
+        with self._stage("export.write"):
+            if extra is not None:
+                os.makedirs(output_dir, exist_ok=True)
+                np.savez_compressed(
+                    os.path.join(output_dir, "additional_points.npz"),
+                    points3d=extra["points3d"][extra["valid"]],
+                    colors=extra["colors"][extra["valid"]],
+                    sfm_points_num=int(valid.sum()),
+                    additional_points_num=int(extra["valid"].sum()))
+            write_model(rec, os.path.join(output_dir, "sparse"), ext=".bin")
+        return rec
+
+    def run_scene(self, scene_dir: str, output_dir: str | None = None,
+                  load_gt: bool = False):
+        """Load a scene folder (`DemoLoader` at `cfg.img_size`: images/
+        or bare image files, masks/ when present) and reconstruct it,
+        exporting to `output_dir` in the original images' pixels. With
+        `load_gt`, the COLMAP model under SCENE/sparse[/0] is read and the
+        predictions gain ``gt_auc30`` (AUC@30 of the frames matched to it
+        by image name) and ``gt_frames_matched``."""
+        data = DemoLoader(scene_dir, img_size=self.cfg.img_size,
+                          load_gt=load_gt).load()
+        predictions = self.sparse_reconstruct(
+            data["images"], masks=data["masks"],
+            image_names=data["image_names"], output_dir=output_dir,
+            crop_params=data["crop_params"])
+        gt = data.get("gt")
+        if load_gt and gt is not None:
+            # by image NAME: COLMAP numbers images in registration order
+            # and may register a subset
+            gt_by_name = {n: i for i, n in enumerate(gt["image_names"])}
+            pairs = [(i, gt_by_name[n])
+                     for i, n in enumerate(data["image_names"])
+                     if n in gt_by_name]
+            if len(pairs) >= 2:
+                pred_idx, gt_idx = (list(x) for x in zip(*pairs))
+                extr = predictions["extrinsics"]
+                predictions["gt_auc30"] = float(pose_auc30(
+                    extr[torch.as_tensor(pred_idx, device=extr.device)],
+                    torch.as_tensor(gt["extrinsics"][gt_idx],
+                                    dtype=torch.float32,
+                                    device=extr.device)))
+                predictions["gt_frames_matched"] = len(pred_idx)
+        return predictions

@@ -188,3 +188,41 @@ def render_two_plane_scene(num_frames: int = 8, image_size: int = 1024,
         "intrinsics": np.broadcast_to(K.astype(np.float32),
                                       (S, 3, 3)).copy(),
     }
+
+
+def write_scene_folder(scene: dict, out_dir: str, seed: int = 0) -> list:
+    """A rendered scene as a scene folder, as examples/render_scene.py
+    writes one: OUT/images/frame_%04d.png (8-bit, Pillow) and the planted
+    cameras as a COLMAP model under OUT/sparse/0, with 64 seeded scene
+    points so the model is well-formed. Returns the image names."""
+    import os
+
+    from PIL import Image
+
+    from vggsfm_tpu_torch.io import arrays_to_reconstruction, write_model
+
+    images = scene["images"]
+    S, size = images.shape[:2]
+    img_dir = os.path.join(out_dir, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    names = []
+    for i, im in enumerate(images):
+        name = f"frame_{i:04d}.png"
+        Image.fromarray((im * 255).astype(np.uint8)).save(
+            os.path.join(img_dir, name))
+        names.append(name)
+    extr = scene["extrinsics"].astype(np.float64)
+    intr = scene["intrinsics"].astype(np.float64)
+    rng = np.random.default_rng(seed)
+    pts = np.column_stack([rng.uniform(-1.0, 1.0, 64),
+                           rng.uniform(-1.0, 1.0, 64),
+                           rng.uniform(2.0, 4.0, 64)])
+    tracks = np.zeros((S, len(pts), 2))
+    for s in range(S):
+        uv = (intr[s] @ ((extr[s, :, :3] @ pts.T).T + extr[s, :, 3]).T).T
+        tracks[s] = uv[:, :2] / uv[:, 2:]
+    inb = ((tracks >= 0) & (tracks < size)).all(axis=-1)
+    rec = arrays_to_reconstruction(pts, extr, intr, tracks, inb,
+                                   (size, size), image_names=names)
+    write_model(rec, os.path.join(out_dir, "sparse", "0"), ext=".bin")
+    return names
