@@ -127,12 +127,35 @@ prints no result line):
    `triangulate_extra_points` on the card and on the CPU at a reduced
    size (4 frames, 256 px, f32, TF32 off, the same fmaps and cameras):
    without the matching init the coarse tracks gated as in the agree
-   phase, with it (argmax near-ties flip between devices) printed, as in
-   the few-tracks phase; points and valid masks printed. Then the scene
+   phase; with it, the matching init's argmax steps recorded on both
+   devices: every pick that differs must be a near-tie under the f32
+   dot-product bound C * 2^-24 * sum |products|, every forward score
+   within twice its bound, the tracks that part with every pick equal
+   must start within 1e-4 cells, and the CPU alone, its starts nudged by
+   1e-6 cells, must part from itself on at least as many tracks (the
+   coarse iterations amplify rounding-level starts); points and valid
+   masks printed. Then the scene
    written as PNGs with its planted cameras as the GT model and
    `python3 -m vggsfm_tpu_torch.demo DIR --load-gt
    --glb` in a child process: AUC@30 against the GT >= 0.85, and the
    model and scene.glb it writes parse.
+12. dense and visuals: (f) `DepthAnything` (DINOv2 taps + DPT head,
+   seeded) on one 1024-px frame at `depth_input_size` 518 through the
+   runner's `_disparity`: ViT-B in bf16 and f32 (ms per frame by CUDA
+   events, peak memory, shape, finite, >= 0), ViT-B f32 on the card
+   against the CPU at 140 px with TF32 off (within 1e-3 of the largest
+   disparity), and DepthAnythingV2-Large (`DepthAnything.vitl()`) once in
+   bf16; (g) `sparse_reconstruct` at the export phase's workload on its
+   runner with `dense_depth`, `visual_tracks`, `make_reproj_frames`,
+   `visual_query_points` and `profile_dir`: the dense_depth and visuals
+   stage times, each frame's depth inlier fraction, the depth maps read
+   back at the original resolution (finite, > 0), the visual files (the
+   mp4 where OpenCV has a codec), a trace naming every stage, the five
+   kernels' launch counts equal to the export run's, AUC@30 >= 0.85 and
+   within 0.01 of the export run's; (h) the CLI with --dense-depth
+   --visual-tracks --reproj-frames --visual-query-points --profile-dir
+   --load-gt in a child process: its wall time, AUC@30 >= 0.85, the
+   depth maps, visuals and trace it writes.
 
 Then one JSON line describing each kernel, the card line again, and as the
 last line {"ok": true, "device": {...}}. Needs a CUDA GPU and the repo
@@ -141,6 +164,7 @@ checkout around this file; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1989,17 +2013,19 @@ def check_export(out_dir, res, names) -> dict:
             "rotation_orth_err": orth_err, "glb_points": n_glb}
 
 
-def export_phase(report: dict, launches: dict) -> None:
+def export_phase(report: dict, launches: dict, shared: dict) -> None:
     """(e) `sparse_reconstruct` at (b)'s matched workload with the export:
     image names, square crop parameters, 4096 extra grid points per frame
     tracked over all 8 frames (`extra_pt_pixel_interval` 16), appended to
     the model, and scene.glb; warm, then timed. `launches` gets the timed
-    run's launch counts. Then `triangulate_extra_points` GPU vs CPU at a
-    reduced size, and the CLI on the scene written as PNGs."""
+    run's launch counts; `shared` the runner, the scene and the run's
+    AUC@30 for the dense phase. Then `triangulate_extra_points` GPU vs CPU
+    at a reduced size, and the CLI on the scene written as PNGs."""
     import numpy as np
     import torch
 
     from vggsfm_tpu_torch.datasets.demo_loader import crop_parameters
+    from vggsfm_tpu_torch.geometry.metrics import pose_auc30
     from vggsfm_tpu_torch.ops import fused_mlp as fm
     from vggsfm_tpu_torch.runner import VGGSfMRunner, track_colors
     from vggsfm_tpu_torch.utils.synth import (
@@ -2092,6 +2118,8 @@ def export_phase(report: dict, launches: dict) -> None:
                               res["pred_track"][0].cpu(), w)
     c_err = float((res["colors"].cpu() - cpu_colors).abs().max())
     assert c_err <= 1e-5, f"colors off the CPU's by {c_err}"
+    auc = float(pose_auc30(res["extrinsics"], torch.as_tensor(
+        scene["extrinsics"], device="cuda")))
 
     # the host export alone on the same predictions: building the
     # Reconstruction, then writing the files
@@ -2115,7 +2143,8 @@ def export_phase(report: dict, launches: dict) -> None:
           f"(its coarse calls {tm['extra_points.coarse']:.3f} s); the "
           f"export alone on these predictions {save_s:.3f} s (build "
           f"{build_s:.3f} s, write {write_s:.3f} s); model read back: "
-          f"{counts}; colors vs CPU {c_err:.1e} (<= 1e-5); launches "
+          f"{counts}; colors vs CPU {c_err:.1e} (<= 1e-5); AUC@30 against "
+          f"the planted cameras {auc:.4f} (printed); launches "
           f"extra points {extra_launches}, the rest {rest} ok", flush=True)
     report["export"] = {
         "wall_s": wall, "first_run_s": first_s, "stages_s": tm,
@@ -2124,12 +2153,151 @@ def export_phase(report: dict, launches: dict) -> None:
         "extra_points_s": tm["extra_points"],
         "export_s": save_s, "export_build_s": build_s,
         "export_write_s": write_s, "model": counts,
-        "colors_vs_cpu": c_err, "launches_extra": extra_launches}
-    del res, runner
+        "colors_vs_cpu": c_err, "launches_extra": extra_launches,
+        "auc30": auc}
+    shared.update(runner=runner, scene=scene, names=names, crop=crop,
+                  auc30=auc)
+    del res
     torch.cuda.empty_cache()
 
     extra_points_agreement(report)
     cli_run(report, scene, write_scene_folder)
+
+
+@contextlib.contextmanager
+def record_matching(log: list):
+    """Record the tracker's matching init while it runs: per
+    `global_match_coords` call one entry of `log` with its inputs (the
+    fmaps, the query features), the scores of every argmax it takes, in
+    its order (frame s forward, then frame s backward with the cycle), and
+    the coordinates it returns; all copied to the host."""
+    from vggsfm_tpu_torch.models import tracker as ttr
+
+    gmc, amp = ttr.global_match_coords, ttr._argmax_parabola
+
+    def argmax_recorded(flat, H, W):
+        log[-1]["scores"].append(flat.float().cpu())
+        return amp(flat, H, W)
+
+    def match_recorded(fmaps, query_feats, qp, cycle=False):
+        log.append({"fmaps": fmaps.float().cpu(),
+                    "qf": query_feats.float().cpu(), "scores": []})
+        out = gmc(fmaps, query_feats, qp, cycle=cycle)
+        log[-1]["coords"] = out[0].cpu()
+        return out
+
+    ttr.global_match_coords = match_recorded
+    ttr._argmax_parabola = argmax_recorded
+    try:
+        yield log
+    finally:
+        ttr.global_match_coords, ttr._argmax_parabola = gmc, amp
+
+
+def matching_flips(log_g: list, log_c: list, tg, tc) -> dict:
+    """Where the matching init's argmax steps part between the devices.
+
+    Each score is a dot product of C-channel unit vectors, so its f32
+    rounding is bounded by b = C * 2^-24 * sum_c |f_c q_c| (the usual
+    dot-product bound, computed in f64 on the host from the recorded
+    inputs). For every argmax of every call (frames 1.., forward, then
+    backward with the cycle; frame 0's are overwritten), the picks of the
+    two devices are compared. A differing pick (cells i on the card, j on
+    the CPU) is a near-tie when on each device the gap between its own
+    pick and the other's, as that device scored them, is at most
+    2 (b_i + b_j): the exact scores lie within b of each device's, so a
+    flip needs |e_i - e_j| <= b_i + b_j, and each device's gap is then at
+    most twice that. A track is flipped when its coarse positions
+    (tg / tc, (1, S, calls * N, 2)) part by more than 1e-2 px in some
+    frame; for each the first argmax step that picked a different cell is
+    found, and where none did, the largest distance between the two
+    devices' initial coordinates (cells). Also: the largest |s_gpu -
+    s_cpu| / (2 b) over every score of every forward argmax."""
+    import torch
+
+    from vggsfm_tpu_torch.models import tracker as ttr
+
+    def unit(x):
+        return x / x.norm(dim=-1, keepdim=True).clamp(min=1e-300)
+
+    first_steps, near, not_near, no_flip_init = [], 0, [], []
+    top2 = []
+    score_ratio = 0.0
+    n_flipped = 0
+    offset = 0
+    for eg, ec in zip(log_g, log_c):
+        fm = ec["fmaps"][0].double()  # (S, H, W, C)
+        S, H, W, C = fm.shape
+        fmu = unit(fm)
+        N = ec["qf"].shape[1]
+        qu = unit(ec["qf"][0].double())  # (N, C)
+        fin = (tg[0, :, offset: offset + N] - tc[0, :, offset: offset + N])
+        flipped = fin.abs().amax(dim=(0, 2)) > 1e-2  # (N,)
+        offset += N
+        n_flipped += int(flipped.sum())
+        first = [None] * N
+        cycle = len(ec["scores"]) == 2 * S
+        for s in range(1, S):
+            steps = [("forward", 2 * s if cycle else s)]
+            if cycle:
+                steps.append(("backward", 2 * s + 1))
+            for kind, k in steps:
+                sg, sc = eg["scores"][k][0].double(), ec["scores"][k][0].double()
+                if kind == "forward":
+                    ref = fmu[s].reshape(H * W, C)
+                    q = qu
+                else:
+                    # the CPU's forward match, resampled, against frame 0
+                    xy, _ = ttr._argmax_parabola(
+                        ec["scores"][k - 1], H, W)
+                    q = unit(ttr.bilinear_sample(fmu[s][None],
+                                                 xy.double())[0])
+                    ref = fmu[0].reshape(H * W, C)
+                bnd = C * 2.0 ** -24 * (q.abs() @ ref.abs().T)  # (N, HW)
+                if kind == "forward":
+                    score_ratio = max(score_ratio, float(
+                        ((sg - sc).abs() / (2 * bnd)).max()))
+                ig, ic = sg.argmax(-1), sc.argmax(-1)
+                for n in torch.nonzero(ig != ic)[:, 0].tolist():
+                    i, j = int(ig[n]), int(ic[n])
+                    tol = 2 * float(bnd[n, i] + bnd[n, j])
+                    gap_g = float(sg[n, i] - sg[n, j])
+                    gap_c = float(sc[n, j] - sc[n, i])
+                    t2g = torch.topk(sg[n], 2).values
+                    t2c = torch.topk(sc[n], 2).values
+                    top2.append((float(t2g[0] - t2g[1]),
+                                 float(t2c[0] - t2c[1]), tol))
+                    if gap_g <= tol and gap_c <= tol:
+                        near += 1
+                    else:
+                        not_near.append({"frame": s, "step": kind,
+                                         "gap_gpu": gap_g, "gap_cpu": gap_c,
+                                         "bound": tol})
+                    if first[n] is None:
+                        first[n] = f"{kind} frame {s}"
+        init = (eg["coords"][0] - ec["coords"][0]).abs().amax(dim=(0, 2))
+        for n in torch.nonzero(flipped)[:, 0].tolist():
+            if first[n] is None:
+                no_flip_init.append(float(init[n]))
+            else:
+                first_steps.append(first[n])
+    counts = {}
+    for f in first_steps:
+        counts[f] = counts.get(f, 0) + 1
+    return {"flipped_tracks": n_flipped,
+            "flipped_by_a_differing_pick": len(first_steps),
+            "first_differing_step": counts,
+            "differing_picks": near + len(not_near),
+            "near_ties": near, "not_near_ties": not_near[:20],
+            "n_not_near_ties": len(not_near),
+            "top2_gap_max": {
+                "gpu": max((a for a, _, _ in top2), default=0.0),
+                "cpu": max((b for _, b, _ in top2), default=0.0),
+                "bound_max": max((t for _, _, t in top2), default=0.0)},
+            "flipped_without_a_differing_pick": len(no_flip_init),
+            "their_initial_coords_max_cells": max(no_flip_init,
+                                                  default=0.0),
+            "forward_score_diff_over_2b_max": score_ratio}
 
 
 def extra_points_agreement(report: dict) -> None:
@@ -2139,8 +2307,17 @@ def extra_points_agreement(report: dict) -> None:
     fmaps (the CPU's). Without the matching init the coarse tracks are
     gated as the agree phase gates them (>= 95% within 1e-2 px in every
     frame, median <= 1e-3 px); with it, the runner's weights-free mode,
-    printed: its argmax steps flip on near-ties between devices, as in
-    the few-tracks phase. The points and valid masks printed for both."""
+    the argmax steps of the matching init are recorded on both devices
+    and `matching_flips` says, for each track whose positions part, which
+    argmax first picked a different cell and how near a tie it was under
+    the f32 dot-product bound. Gated: every differing pick is a near-tie,
+    every forward score agrees within twice its bound, and the tracks
+    that part with every pick equal start from initial coordinates within
+    1e-4 cells; and the CPU alone, its initial coordinates nudged by
+    uniform noise of 1e-6 cells (about one f32 ulp), parts from its own
+    run on at least as many tracks as the card does: the coarse
+    iterations amplify rounding-level differences of the start. The
+    points and valid masks printed for both."""
     import torch
 
     from vggsfm_tpu_torch.utils.synth import render_two_plane_scene
@@ -2154,9 +2331,11 @@ def extra_points_agreement(report: dict) -> None:
     intr = torch.as_tensor(scene["intrinsics"], dtype=torch.float32)
     fmaps = make_runner("f32", "cpu", seed=5).fmaps(images)
 
-    def run(dev, matching_init):
+    def run(dev, matching_init, nudge=0.0):
+        from vggsfm_tpu_torch.models import tracker as ttr
+
         runner = make_runner("f32", dev, seed=5, matching_init=matching_init)
-        seen = []
+        seen, log = [], []
         coarse = runner._coarse_track
 
         def recorded(f, qp, stage="coarse"):
@@ -2165,14 +2344,30 @@ def extra_points_agreement(report: dict) -> None:
             return t, v
 
         runner._coarse_track = recorded
-        res = runner.triangulate_extra_points(
-            images.to(dev), fmaps.to(dev), extr.to(dev), intr.to(dev),
-            num_extra=256)
-        return torch.cat(seen, 2), {k: v.cpu() for k, v in res.items()}
+        with record_matching(log):
+            match = ttr.global_match_coords
+
+            def nudged(*a, **k):
+                coords, conf, cyc = match(*a, **k)
+                g = torch.Generator().manual_seed(len(seen))
+                d = (torch.rand(coords.shape, generator=g) * 2 - 1) * nudge
+                d[:, 0] = 0.0
+                return coords + d.to(coords.device), conf, cyc
+
+            if nudge:
+                ttr.global_match_coords = nudged
+            try:
+                res = runner.triangulate_extra_points(
+                    images.to(dev), fmaps.to(dev), extr.to(dev),
+                    intr.to(dev), num_extra=256)
+            finally:
+                ttr.global_match_coords = match
+        return (torch.cat(seen, 2), {k: v.cpu() for k, v in res.items()},
+                log)
 
     lines, rows = [], {}
     for minit in (False, True):
-        (tg, g), (tc, c) = run("cuda", minit), run("cpu", minit)
+        (tg, g, log_g), (tc, c, log_c) = run("cuda", minit), run("cpu", minit)
         med, mx, frac = track_agreement(tg, tc)
         same_valid = float((g["valid"] == c["valid"]).float().mean())
         both = g["valid"] & c["valid"]
@@ -2181,6 +2376,12 @@ def extra_points_agreement(report: dict) -> None:
         pts = float((rel <= 1e-3).float().mean()) if both.any() else 1.0
         rows[minit] = {"median_px": med, "max_px": mx, "frac_1e-2": frac,
                        "valid_equal": same_valid, "points_1e-3": pts}
+        if minit:
+            rows[minit]["flips"] = matching_flips(log_g, log_c, tg, tc)
+            tn = run("cpu", True, nudge=1e-6)[0]
+            rows[minit]["cpu_nudged_1e-6_cells_vs_cpu"] = dict(zip(
+                ("median_px", "max_px", "frac_1e-2"),
+                track_agreement(tn, tc)))
         lines.append(
             f"matching init {'on' if minit else 'off'}: coarse tracks "
             f"median {med:.2e} px, max {mx:.2e} px, within 1e-2 px "
@@ -2190,14 +2391,33 @@ def extra_points_agreement(report: dict) -> None:
             + (f"{float(rel.median()):.1e}" if both.any() else "-"))
     off = rows[False]
     ok = off["frac_1e-2"] >= 0.95 and off["median_px"] <= 1e-3
+    flips = rows[True]["flips"]
+    nudged = rows[True]["cpu_nudged_1e-6_cells_vs_cpu"]
+    ties = (flips["n_not_near_ties"] == 0
+            and flips["forward_score_diff_over_2b_max"] <= 1.0
+            and flips["their_initial_coords_max_cells"] <= 1e-4
+            and nudged["frac_1e-2"] <= rows[True]["frac_1e-2"])
     print(f"export (e): triangulate_extra_points GPU vs CPU ({S} frames, "
           f"{size} px, {S} x 256 grid points, f32, the same fmaps and "
-          f"cameras): {lines[0]} {'ok' if ok else 'FAIL'}; {lines[1]} "
-          f"(printed)", flush=True)
+          f"cameras): {lines[0]} {'ok' if ok else 'FAIL'}; {lines[1]}",
+          flush=True)
+    print(f"export (e): the matching init's argmax steps, card vs CPU "
+          f"(score bound b = C * 2^-24 * sum_c |f_c q_c|, C = 128; a "
+          f"differing pick i / j is a near-tie when each device's gap "
+          f"between its pick and the other's is <= 2 (b_i + b_j)): "
+          f"{json.dumps(flips)}; the CPU against itself with its initial "
+          f"coordinates nudged by <= 1e-6 cells: within 1e-2 px "
+          f"{nudged['frac_1e-2']:.4f}, median {nudged['median_px']:.2e} px "
+          f"(every differing pick a near-tie, scores within 2b, the parting "
+          f"tracks' starts within 1e-4 cells, the nudged CPU parting on at "
+          f"least as many tracks: {'ok' if ties else 'FAIL'})", flush=True)
     report["export_agree"] = {"matching_init_off": rows[False],
                               "matching_init_on": rows[True]}
     if not ok:
         raise AssertionError("GPU and CPU extra-point tracks disagree")
+    if not ties:
+        raise AssertionError("the matching init parts between the devices "
+                             "beyond rounding")
 
 
 def cli_run(report: dict, scene, write_scene_folder) -> None:
@@ -2234,6 +2454,233 @@ def cli_run(report: dict, scene, write_scene_folder) -> None:
     report["export_cli"] = {"wall_s": wall, "summary": summary}
     if not ok:
         raise AssertionError("the CLI's reconstruction misses the gates")
+
+
+# ------------------------------------------------------------ phase 12
+
+def depth_model_readings(runner, frame, report: dict) -> None:
+    """(f) The DPT depth model alone on one 1024-px frame at
+    `depth_input_size` 518 (the runner's `_disparity`: resize, DPT,
+    resize back): ViT-B (the runner's seeded model) in bf16 and in f32,
+    the ms per frame (CUDA events) and the peak memory, shape, finite,
+    >= 0; ViT-B in f32 on the card against the CPU at 140 px with TF32 off
+    (within 1e-3 of the largest disparity: f32 sums in other orders
+    through 12 blocks and the head's convs); then DepthAnythingV2-Large
+    (`DepthAnything.vitl()`, seeded on the card) once in bf16."""
+    import torch
+
+    from vggsfm_tpu_torch.models.dpt import DepthAnything, init_depth_anything_
+
+    vitb = runner._load_depth_model()
+    vitb32 = DepthAnything(dtype=torch.float32)
+    vitb32.load_state_dict(vitb.state_dict())
+    vitb32 = vitb32.to("cuda").eval()
+    vitl = DepthAnything.vitl(dtype=torch.bfloat16).to("cuda").eval()
+    init_depth_anything_(vitl, torch.Generator("cuda").manual_seed(0))
+    rows = {}
+    for name, model, iters in (("vitb_bf16", vitb, 10),
+                               ("vitb_f32", vitb32, 5),
+                               ("vitl_bf16", vitl, 3)):
+        runner._depth = model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        d = runner._disparity(frame)
+        ms = cuda_time_ms(lambda: runner._disparity(frame), iters, warmup=1)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        ok = (tuple(d.shape) == (1, *frame.shape[2:4])
+              and bool(torch.isfinite(d).all()) and float(d.min()) >= 0)
+        rows[name] = {"ms_per_frame": ms, "peak_mib_above_weights": peak,
+                      "ok": ok, "disparity_max": float(d.max())}
+        assert ok, f"{name}: disparity {tuple(d.shape)}, not finite or < 0"
+    runner._depth = vitb
+    del vitl
+
+    # GPU vs CPU, f32, TF32 off
+    x = torch.nn.functional.interpolate(
+        frame[0].permute(0, 3, 1, 2), size=(140, 140), mode="bilinear",
+        align_corners=True).permute(0, 2, 3, 1).contiguous()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            g = vitb32(x).cpu()
+            c = vitb32.to("cpu")(x.cpu())
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    err = float((g - c).abs().max())
+    scale = float(c.abs().max())
+    agree = err <= 1e-3 * scale
+    del vitb32
+    torch.cuda.empty_cache()
+    print("dense (f): DepthAnything at depth_input_size 518 on one 1024-px "
+          "frame (resize, DPT, resize back), seeded weights: "
+          + "; ".join(f"{k} {v['ms_per_frame']:.2f} ms per frame, peak "
+                      f"{v['peak_mib_above_weights']:.0f} MiB above the "
+                      f"weights, disparity max {v['disparity_max']:.3g}"
+                      for k, v in rows.items())
+          + f"; shapes, finite, >= 0 ok; ViT-B f32 card vs CPU at 140 px "
+          f"(TF32 off): max |diff| {err:.2e} of max {scale:.3g} (<= 1e-3 "
+          f"of it) {'ok' if agree else 'FAIL'}", flush=True)
+    report["dense_models"] = {**rows, "vitb_f32_gpu_vs_cpu_max_abs": err,
+                              "vitb_f32_cpu_max": scale}
+    if not agree:
+        raise AssertionError("the DPT on the card disagrees with the CPU")
+
+
+def dense_phase(report: dict, launches: dict, export_launches: dict,
+                shared: dict) -> None:
+    """(f) The depth model's readings (`depth_model_readings`); then (g)
+    `sparse_reconstruct` at the export phase's matched workload, on its
+    runner, with `dense_depth`, `visual_tracks`, `make_reproj_frames`,
+    `visual_query_points` and a `profile_dir`: the dense_depth and
+    visuals stage times; each frame's `depth_inlier_frac` (in (0, 1], the
+    median printed); OUT/depths/*.bin read back at each image's original
+    resolution, finite and > 0; the visual files; a trace that names the
+    stages; the five kernels' launch counts equal to the export phase's
+    run (the dense stage launches none of them); AUC@30 against the
+    planted cameras >= 0.85 and within 0.01 of the export phase's. Then
+    (h) the CLI with the new flags on the scene folder of the export
+    phase's CLI run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vggsfm_tpu_torch.geometry.metrics import pose_auc30
+    from vggsfm_tpu_torch.ops import fused_mlp as fm
+    from vggsfm_tpu_torch.utils.depth import read_colmap_array
+
+    runner, scene = shared["runner"], shared["scene"]
+    names, crop = shared["names"], shared["crop"]
+    images = scene["images"]
+    S, size = images.shape[:2]
+    frame = torch.as_tensor(images[:1], device="cuda")[None]
+    depth_model_readings(runner, frame, report)
+
+    out_dir = os.path.join(OUT_DIR, "dense")
+    prof_dir = os.path.join(OUT_DIR, "dense_trace")
+    runner.cfg = dataclasses.replace(
+        runner.cfg, dense_depth=True, visual_tracks=True,
+        make_reproj_frames=True, visual_query_points=True,
+        profile_dir=prof_dir)
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = runner.sparse_reconstruct(images, image_names=names,
+                                    output_dir=out_dir, crop_params=crop)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.update(fm.launch_counts)
+    fm.reset_launch_counts()
+    runner.cfg = dataclasses.replace(
+        runner.cfg, dense_depth=False, visual_tracks=False,
+        make_reproj_frames=False, visual_query_points=False,
+        profile_dir=None)
+    assert launches == export_launches, \
+        f"launches {launches}, the export phase's {export_launches}"
+
+    tm = res["timings"]
+    inl = res["depth_inlier_frac"].cpu().numpy()
+    assert res["depth_maps"].shape == (S, size, size)
+    assert ((inl > 0) & (inl <= 1)).all(), f"inlier fractions {inl}"
+    shapes = set()
+    for n in names:
+        d = read_colmap_array(os.path.join(out_dir, "depths",
+                                           os.path.splitext(n)[0] + ".bin"))
+        assert np.isfinite(d).all() and d.min() > 0, f"depth map {n}"
+        shapes.add(d.shape)
+    assert shapes == {(int(crop[0][1]), int(crop[0][0]))}, shapes
+    vis = set(os.listdir(os.path.join(out_dir, "visuals")))
+    want = ({f"tracks_{s:04d}.png" for s in range(S)}
+            | {f"reproj_{s:04d}.png" for s in range(S)} | {"tracks.gif"})
+    assert want <= vis, f"missing visuals {sorted(want - vis)}"
+    n_query = len([v for v in vis if v.startswith("query_points_")])
+    assert n_query >= runner.cfg.query_frame_num, n_query
+    mp4 = sorted(v for v in vis if v.endswith((".mp4", ".avi")))
+    trace = runner.trace_path
+    with open(trace, "rb") as f:
+        data = f.read()
+    stages = ("query_rank", "camera_init", "fmaps", "tracking",
+              "preliminary", "sfm", "extra_points", "dense_depth",
+              "export", "visuals")
+    missing = [n for n in stages if f'"{n}"'.encode() not in data]
+    assert not missing, f"the trace names no {missing}"
+    gt = torch.as_tensor(scene["extrinsics"], device="cuda")
+    auc = float(pose_auc30(res["extrinsics"], gt))
+    ok = auc >= 0.85 and abs(auc - shared["auc30"]) <= 0.01
+    print(f"dense (g): sparse_reconstruct at the export phase's workload "
+          f"with dense_depth, the visuals and profile_dir: {wall:.3f} s "
+          f"(profiled); stages dense_depth {tm['dense_depth']:.3f} s, "
+          f"export {tm['export']:.3f} s (export.depths "
+          f"{tm['export.depths']:.3f} s), visuals {tm['visuals']:.3f} s; "
+          f"depth_inlier_frac per frame {[round(float(x), 4) for x in inl]}"
+          f" (median {float(np.median(inl)):.4f}); {len(names)} depth maps "
+          f"at {sorted(shapes)}, finite and > 0; visuals {len(vis)} files "
+          f"({n_query} query-point overlays), mp4 "
+          f"{mp4 if mp4 else 'not written (no OpenCV codec)'}; trace "
+          f"{os.path.basename(trace)} of {len(data) / 2 ** 20:.1f} MiB names "
+          f"every stage; launches equal to the export phase's {launches}; "
+          f"AUC@30 {auc:.4f} (export phase {shared['auc30']:.4f}, >= 0.85, "
+          f"within 0.01) {'ok' if ok else 'FAIL'}", flush=True)
+    report["dense"] = {
+        "wall_s_profiled": wall, "stages_s": tm,
+        "depth_inlier_frac": inl.tolist(),
+        "depth_inlier_frac_median": float(np.median(inl)),
+        "visual_files": len(vis), "mp4": mp4,
+        "trace_mib": len(data) / 2 ** 20, "auc30": auc}
+    if not ok:
+        raise AssertionError("the dense run's cameras miss the gates")
+    del res
+    shared.clear()
+    del runner
+    torch.cuda.empty_cache()
+    dense_cli_run(report)
+
+
+def dense_cli_run(report: dict) -> None:
+    """(h) The CLI as a user runs it with every output: `python3 -m
+    vggsfm_tpu_torch.demo DIR --load-gt --dense-depth --visual-tracks
+    --reproj-frames --visual-query-points --profile-dir D --output O` in a
+    child process, on the scene folder of `cli_run`; gates AUC@30 against
+    the GT >= 0.85 and the depth maps, visuals and trace it writes."""
+    from vggsfm_tpu_torch.utils.depth import read_colmap_array
+
+    scene_dir = os.path.join(OUT_DIR, "export_scene")
+    out_dir = os.path.join(OUT_DIR, "dense_cli")
+    prof_dir = os.path.join(OUT_DIR, "dense_cli_trace")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vggsfm_tpu_torch.demo", scene_dir,
+         "--output", out_dir, "--load-gt", "--dense-depth",
+         "--visual-tracks", "--reproj-frames", "--visual-query-points",
+         "--profile-dir", prof_dir], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+        raise AssertionError(f"the CLI exited {proc.returncode}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    depths = sorted(os.listdir(os.path.join(out_dir, "depths")))
+    d = read_colmap_array(os.path.join(out_dir, "depths", depths[0]))
+    n_vis = len(os.listdir(os.path.join(out_dir, "visuals")))
+    traces = os.listdir(prof_dir)
+    auc = summary.get("gt_auc30", -1.0)
+    ok = (auc >= 0.85 and len(depths) == summary["frames"] and n_vis > 0
+          and len(traces) == 1 and bool((d > 0).all()))
+    print(f"dense (h): python3 -m vggsfm_tpu_torch.demo --load-gt "
+          f"--dense-depth --visual-tracks --reproj-frames "
+          f"--visual-query-points --profile-dir: {wall:.1f} s in a child "
+          f"process (start-up, weights and its first run included); "
+          f"{len(depths)} depth maps of {d.shape}, {n_vis} visual files, "
+          f"trace {traces}; gt_auc30 {auc} (>= 0.85) "
+          f"{'ok' if ok else 'FAIL'}; summary {summary}", flush=True)
+    report["dense_cli"] = {"wall_s": wall, "summary": summary}
+    if not ok:
+        raise AssertionError("the CLI's dense run misses the gates")
 
 
 def main() -> int:
@@ -2312,7 +2759,8 @@ def main() -> int:
     extra = {}
     # by main-path slice
     launches = {"tracker": {}, "camera": {}, "few_tracks": {},
-                "reconstruct": {}, "export": {}}
+                "reconstruct": {}, "export": {}, "dense": {}}
+    shared = {}
     for phase, fn in (
             ("kernels", lambda: kernel_phase(report, extra)),
             ("correlation kernels",
@@ -2327,7 +2775,11 @@ def main() -> int:
             ("reconstruct",
              lambda: reconstruct_phase(extra, launches["reconstruct"])),
             ("end to end", lambda: end_to_end_phase(extra)),
-            ("export", lambda: export_phase(extra, launches["export"]))):
+            ("export",
+             lambda: export_phase(extra, launches["export"], shared)),
+            ("dense and visuals",
+             lambda: dense_phase(extra, launches["dense"],
+                                 launches["export"], shared))):
         t0 = time.perf_counter()
         try:
             fn()

@@ -61,7 +61,9 @@ def test_port_imports_no_jax():
             "sfm/triangulator.py", "sfm/normalize.py", "io/__init__.py",
             "io/colmap.py", "io/bridge.py", "io/glb.py",
             "datasets/__init__.py", "datasets/demo_loader.py",
-            "demo.py"} <= rel
+            "demo.py", "models/dpt.py", "models/dinov2.py",
+            "models/convert.py", "utils/depth.py", "utils/visualizer.py",
+            "io/ply.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imports(p)
            if m.split(".")[0] in BANNED]
     assert bad == []
@@ -77,6 +79,45 @@ def test_cuda_entry_points_raise_without_gpu():
     with pytest.raises(RuntimeError):
         VGGSfMRunner()  # device defaults to "cuda"
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_dense_entry_point_raises_without_gpu_unless_asked_for_the_cpu(
+        monkeypatch):
+    """The dense depth stage runs where the runner runs: asked for the GPU
+    where there is none, the runner raises before any model is built; with
+    device="cpu" it builds its depth model there (seeded; a tiny one here)
+    and `dense_reconstruct` runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    import functools
+
+    import numpy as np
+
+    from vggsfm_tpu_torch import runner as trun
+    from vggsfm_tpu_torch.models.dpt import DepthAnything
+
+    cfg = trun.RunnerConfig(dense_depth=True, depth_input_size=28,
+                            precision="f32", img_size=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trun.VGGSfMRunner(cfg)
+    monkeypatch.setattr(trun, "DepthAnything", functools.partial(
+        DepthAnything, tap_layers=(0, 1, 2, 3), features=16,
+        out_channels=(8, 16, 24, 32), embed_dim=32, depth=4, num_heads=4))
+    runner = trun.VGGSfMRunner(cfg, device="cpu")
+    assert next(runner._load_depth_model().parameters()).device.type == "cpu"
+    rng = np.random.default_rng(0)
+    S, N = 2, 20
+    pred = runner.dense_reconstruct(
+        rng.uniform(size=(1, S, 32, 32, 3)).astype(np.float32), {
+            "extrinsics": np.tile(np.eye(3, 4, dtype=np.float32), (S, 1, 1)),
+            "points3d": (rng.normal(size=(N, 3)) + [0, 0, 4]).astype(
+                np.float32),
+            "pred_track": rng.uniform(2, 30, size=(1, S, N, 2)).astype(
+                np.float32),
+            "valid_2d_mask": np.ones((S, N), bool),
+            "valid_tracks": np.ones(N, bool)})
+    assert pred["depth_maps"].device.type == "cpu"
+    assert pred["depth_maps"].shape == (S, 32, 32)
 
 
 def test_demo_cli_raises_without_gpu_unless_asked_for_the_cpu(tmp_path):

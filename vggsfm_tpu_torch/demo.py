@@ -10,8 +10,11 @@ Usage:
 
 Writes OUT/sparse/{cameras,images,points3D}.bin (OUT defaults to
 SCENE_DIR), OUT/scene.glb with --glb, OUT/additional_points.npz with
---extra-pt-pixel-interval, and prints one JSON summary line. The scene's
-images are read with Pillow.
+--extra-pt-pixel-interval, OUT/depths/*.bin with --dense-depth,
+OUT/visuals/ with --visual-tracks, --reproj-frames and
+--visual-query-points, a torch.profiler trace (Chrome JSON) with
+--profile-dir, and prints one JSON summary line. The scene's images are
+read with Pillow.
 """
 
 from __future__ import annotations
@@ -32,9 +35,18 @@ def parse_args(argv):
     p.add_argument("--max-query-pts", type=int, default=4096)
     p.add_argument("--query-method", default="aliked")
     p.add_argument("--no-fine-tracking", action="store_true")
+    p.add_argument("--dense-depth", action="store_true",
+                   help="write aligned monocular depth maps to "
+                        "OUT/depths/*.bin (COLMAP array format)")
+    p.add_argument("--depth-checkpoint", default=None,
+                   help="DepthAnythingV2 torch checkpoint (optional)")
     p.add_argument("--load-gt", action="store_true",
                    help="load COLMAP GT from SCENE/sparse[/0] and report "
                         "pose AUC@30 against it")
+    p.add_argument("--visual-tracks", action="store_true",
+                   help="write track overlays (PNGs + GIF) to OUT/visuals")
+    p.add_argument("--reproj-frames", action="store_true",
+                   help="write reprojection overlays to OUT/visuals")
     p.add_argument("--glb", action="store_true",
                    help="write OUT/scene.glb (point cloud + camera "
                         "frusta, viewable in any glTF viewer)")
@@ -57,12 +69,18 @@ def parse_args(argv):
     p.add_argument("--center-order", action="store_true",
                    help="anchor the solve on the top-ranked query frame "
                         "(reference center_order)")
+    p.add_argument("--visual-query-points", action="store_true",
+                   help="save query-point overlays to OUT/visuals "
+                        "(reference visual_query_points)")
     p.add_argument("--camera-type", default="SIMPLE_PINHOLE",
                    choices=["SIMPLE_PINHOLE", "SIMPLE_RADIAL"])
     p.add_argument("--shared-camera", action="store_true")
     p.add_argument("--checkpoint", default=None,
                    help="reference torch checkpoint (optional)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the run here "
+                        "(Chrome trace JSON: chrome://tracing, Perfetto)")
     p.add_argument("--config", default=None,
                    help="YAML config (cfgs/demo.yaml schema); CLI flags "
                         "override file values")
@@ -101,17 +119,24 @@ def build_config(args):
         camera_type=args.camera_type,
         shared_camera=args.shared_camera,
         checkpoint=args.checkpoint,
+        dense_depth=args.dense_depth,
+        depth_checkpoint=args.depth_checkpoint,
         make_glb=args.glb,
+        visual_tracks=args.visual_tracks,
+        make_reproj_frames=args.reproj_frames,
         query_by_midpoint=args.query_by_midpoint,
         query_by_interval=args.query_by_interval,
         center_order=args.center_order,
+        visual_query_points=args.visual_query_points,
         seed=args.seed,
+        profile_dir=args.profile_dir,
         extra_pt_pixel_interval=args.extra_pt_pixel_interval,
         extra_by_neighbor=args.extra_by_neighbor,
         concat_extra_points=args.concat_extra_points,
     )
     # maps RunnerConfig field -> argparse dest (they differ for a few)
-    dest_of = {"fine_tracking": "no_fine_tracking", "make_glb": "glb"}
+    dest_of = {"fine_tracking": "no_fine_tracking", "make_glb": "glb",
+               "make_reproj_frames": "reproj_frames"}
     if args.config:
         import yaml
 

@@ -151,14 +151,18 @@ class CameraPredictor(nn.Module):
 
 
 @torch.no_grad()
-def init_camera_(model: CameraPredictor, generator: torch.Generator):
-    """Random init from `generator`, mirroring the JAX package's: Linear,
-    Conv and packed in-projection kernels LeCun-normal (truncated at 2
-    std), biases 0, LayerNorm scale 1 and bias 0, LayerScale gammas 1,
+def seeded_init_(model: nn.Module, generator: torch.Generator):
+    """Random init from `generator`, mirroring the JAX package's flax
+    defaults: Linear, Conv, transposed Conv and packed in-projection
+    kernels LeCun-normal (truncated at 2 std, fan-in = input channels x
+    taps), biases 0, LayerNorm scale 1 and bias 0, LayerScale gammas 1,
     pos_embed N(0, 0.02), pose_token N(0, 1e-6), class, register and mask
-    tokens 0."""
+    tokens 0. Parameters are drawn in name order."""
     norms = {id(m.weight) for m in model.modules()
              if isinstance(m, nn.LayerNorm)}
+    # a transposed conv's kernel is (in, out, kH, kW)
+    deconvs = {id(m.weight) for m in model.modules()
+               if isinstance(m, nn.ConvTranspose2d)}
     for name, p in sorted(model.named_parameters()):
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "pos_embed":
@@ -171,8 +175,14 @@ def init_camera_(model: CameraPredictor, generator: torch.Generator):
         elif id(p) in norms or leaf == "gamma":
             p.fill_(1.0)
         else:
-            fan_in = p[0].numel()
+            fan_in = (p.shape[0] * p[0, 0].numel() if id(p) in deconvs
+                      else p[0].numel())
             std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
             nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
     return model
+
+
+def init_camera_(model: CameraPredictor, generator: torch.Generator):
+    """The camera predictor's seeded init (`seeded_init_`)."""
+    return seeded_init_(model, generator)

@@ -16,6 +16,15 @@ The camera's adds LayerNorm ``scale`` -> ``weight``, the DINOv2 block names
 ``patch_embed`` -> ``patch_embed.proj``), and the ``mask_token`` the JAX
 module does not keep (zeros, never used).
 
+`depth_anything_state_dict_from_jax` inverts `convert_depth_anything`
+(:211-276): the DINOv2 encoder under ``pretrained.*`` (no
+``register_tokens`` entry without registers), the DPT head under
+``depth_head.*`` in the public DepthAnythingV2 layout. Flax's
+ConvTranspose convolves with the kernel spatially flipped against torch's
+scatter semantics, so the JAX converter reverses the taps and this one
+flips them back; ``scratch.refinenet4.resConfUnit1``, which the
+checkpoint carries and no forward uses, is zeros.
+
 The extractors' (`aliked_state_dict_from_jax`, `sddh_state_dict_from_jax`,
 `superpoint_state_dict_from_jax`) give the official checkpoints' key names,
 so `convert_aliked_checkpoint`, `convert_sddh_checkpoint` and
@@ -137,7 +146,9 @@ def _dinov2(sd, prefix, p):
     cls = np.asarray(p["cls_token"])
     sd[f"{prefix}.cls_token"] = _t(cls)
     sd[f"{prefix}.mask_token"] = torch.zeros(1, cls.shape[-1])
-    sd[f"{prefix}.register_tokens"] = _t(p["register_tokens"])
+    regs = np.asarray(p["register_tokens"])
+    if regs.shape[1]:
+        sd[f"{prefix}.register_tokens"] = _t(regs)
     sd[f"{prefix}.pos_embed"] = _t(p["pos_embed"])
     _conv(sd, f"{prefix}.patch_embed.proj", p["patch_embed"])
     _norm(sd, f"{prefix}.norm", p["norm"])
@@ -153,6 +164,54 @@ def _dinov2(sd, prefix, p):
         sd[f"{b}.ls1.gamma"] = _t(blk["ls1_gamma"])
         sd[f"{b}.ls2.gamma"] = _t(blk["ls2_gamma"])
         i += 1
+
+
+def _deconv(sd, prefix, p):
+    """flax ConvTranspose (kH, kW, in, out), taps in convolution
+    orientation -> torch ConvTranspose2d (in, out, kH, kW), scatter
+    orientation."""
+    k = np.transpose(p["kernel"], (2, 3, 0, 1))[:, :, ::-1, ::-1]
+    sd[f"{prefix}.weight"] = _t(np.ascontiguousarray(k))
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _rcu(sd, prefix, p):
+    _conv(sd, f"{prefix}.conv1", p["conv1"])
+    _conv(sd, f"{prefix}.conv2", p["conv2"])
+
+
+def depth_anything_state_dict_from_jax(params_np) -> dict:
+    """JAX `DepthAnything` params (a numpy pytree, with or without the
+    outer ``{"params": ...}``) -> the port's DepthAnything state_dict,
+    the public DepthAnythingV2 key names."""
+    p = params_np.get("params", params_np)
+    sd: dict = {}
+    _dinov2(sd, "pretrained", p["backbone"])
+    h, pre = p["head"], "depth_head"
+    for i in range(4):
+        _conv(sd, f"{pre}.projects.{i}", h[f"project_{i}"])
+        sd[f"{pre}.scratch.layer{i + 1}_rn.weight"] = _t(np.transpose(
+            h[f"layer_rn_{i}"]["kernel"], (3, 2, 0, 1)))
+    _deconv(sd, f"{pre}.resize_layers.0", h["resize_0"])
+    _deconv(sd, f"{pre}.resize_layers.1", h["resize_1"])
+    _conv(sd, f"{pre}.resize_layers.3", h["resize_3"])
+    # refinenet4 fuses the coarsest level (fusion_3) ... refinenet1 the
+    # finest (fusion_0)
+    for i, rn in ((3, 4), (2, 3), (1, 2), (0, 1)):
+        f, fp = h[f"fusion_{i}"], f"{pre}.scratch.refinenet{rn}"
+        _rcu(sd, f"{fp}.resConfUnit2", f["rcu2"])
+        _conv(sd, f"{fp}.out_conv", f["project"])
+        if "rcu1" in f:
+            _rcu(sd, f"{fp}.resConfUnit1", f["rcu1"])
+        else:  # the coarsest block's, never used
+            for c in ("conv1", "conv2"):
+                w = sd[f"{fp}.resConfUnit2.{c}.weight"]
+                sd[f"{fp}.resConfUnit1.{c}.weight"] = torch.zeros_like(w)
+                sd[f"{fp}.resConfUnit1.{c}.bias"] = torch.zeros(w.shape[0])
+    _conv(sd, f"{pre}.scratch.output_conv1", h["head_conv1"])
+    _conv(sd, f"{pre}.scratch.output_conv2.0", h["head_conv2"])
+    _conv(sd, f"{pre}.scratch.output_conv2.2", h["head_conv3"])
+    return sd
 
 
 def camera_state_dict_from_jax(params_np) -> dict:

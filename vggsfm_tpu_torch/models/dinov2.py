@@ -2,12 +2,15 @@
 vggsfm_tpu/models/dinov2.py, the frozen 'dinov2_vitb14_reg' backbone of the
 reference's camera predictor (vggsfm/models/camera_predictor.py:223-236):
 patch-14 ViT, class token + 4 register tokens, LayerScale per block, final
-LayerNorm; `forward` returns the normalized patch tokens.
+LayerNorm; `forward` returns the normalized patch tokens, and with
+`return_layers` also the tapped blocks' (the DPT depth head's input).
 
 Parameter names are the torch.hub model's (``patch_embed.proj``, ``blocks.N
 .attn.qkv``, ``ls1.gamma``, ``mask_token``, ...), so the reference
 checkpoint's ``camera_predictor.backbone.*`` entries load as they are.
-``mask_token`` (masked-image pretraining) is kept and never used.
+``mask_token`` (masked-image pretraining) is kept and never used. With no
+register tokens there is no ``register_tokens`` entry, as in the public
+DepthAnythingV2 encoders (``pretrained.*``).
 
 The dtype flow is the JAX module's: everything runs in ``dtype`` (bf16 on
 the main path) with f32 LayerNorm statistics and softmax; the LayerScale
@@ -107,15 +110,19 @@ class DinoVisionTransformer(nn.Module):
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.mask_token = nn.Parameter(torch.zeros(1, embed_dim))
-        self.register_tokens = nn.Parameter(
+        self.register_tokens = (nn.Parameter(
             torch.zeros(1, num_register_tokens, embed_dim))
+            if num_register_tokens else None)
         self.pos_embed = nn.Parameter(
             torch.zeros(1, 1 + pos_embed_size ** 2, embed_dim))
         self.blocks = nn.ModuleList(
             DinoBlock(embed_dim, num_heads, dtype=dtype) for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
-    def forward(self, images):
+    def forward(self, images, return_layers: tuple = ()):
+        """With `return_layers` (block indices) also returns those blocks'
+        patch tokens with the final LayerNorm applied, DINOv2's
+        `get_intermediate_layers(norm=True)`: (tokens, [taps])."""
         B, H, W, _ = images.shape
         ps, n, dt = self.patch_size, self.pos_embed_size, self.dtype
         gh, gw = H // ps, W // ps
@@ -133,9 +140,17 @@ class DinoVisionTransformer(nn.Module):
                                              align_corners=False)
         x = x + pos_patch.reshape(1, gh * gw, C).to(dt)
         cls = (self.cls_token + pos_cls).to(dt).expand(B, 1, C)
-        regs = self.register_tokens.to(dt).expand(
-            B, self.num_register_tokens, C)
-        x = torch.cat([cls, regs, x], dim=1)
-        for blk in self.blocks:
+        if self.register_tokens is not None:
+            regs = self.register_tokens.to(dt).expand(
+                B, self.num_register_tokens, C)
+            x = torch.cat([cls, regs, x], dim=1)
+        else:
+            x = torch.cat([cls, x], dim=1)
+        first = 1 + self.num_register_tokens
+        taps = []
+        for i, blk in enumerate(self.blocks):
             x = blk(x)
-        return layer_norm(x, self.norm, dt)[:, 1 + self.num_register_tokens:]
+            if i in return_layers:
+                taps.append(layer_norm(x, self.norm, dt)[:, first:])
+        out = layer_norm(x, self.norm, dt)[:, first:]
+        return (out, taps) if return_layers else out

@@ -4,13 +4,15 @@ and tracking (feature maps -> coarse tracks -> fine tracks, chunked over
 query points), the re-query of frames that see too few points, the
 preliminary two-view cameras, the hybrid choice of the SfM's initial
 cameras, the SfM solve and its gauge normalization, the track colors, the
-extra-point densification and the COLMAP / GLB export, and the scene
-loader around it. Counterpart of vggsfm_tpu/runner.py
-(`_score_camera_init`, `select_query_frames`, `_fmaps`, `_query_points`,
-`_coarse_track`, `_fine_track`, `predict_tracks`, `_comple_nonvis`,
-`sparse_reconstruct`, `_choose_camera_init`, `triangulate_extra_points`,
+extra-point densification, the dense depth maps, the COLMAP / GLB export,
+the visuals and the profiler trace, and the scene loader around it.
+Counterpart of vggsfm_tpu/runner.py (`_stage`, `_score_camera_init`,
+`select_query_frames`, `_fmaps`, `_query_points`, `_coarse_track`,
+`_fine_track`, `predict_tracks`, `_comple_nonvis`, `sparse_reconstruct`,
+`_choose_camera_init`, `triangulate_extra_points`, `_load_depth_model`,
+`_disparity`, `dense_reconstruct`, `save_dense_depth_maps`,
 `save_reconstruction`, `run_scene`, the checkpoint by path; reference
-runners/runner.py:292-633, 887-911, 1068-1282).
+runners/runner.py:133-162, 292-633, 776-860, 887-911, 1068-1282).
 
 Runs on the GPU unless the caller passes ``device="cpu"``.
 """
@@ -21,6 +23,7 @@ import contextlib
 import dataclasses
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,8 +46,13 @@ from vggsfm_tpu_torch.io.bridge import (
 from vggsfm_tpu_torch.io.colmap import Point3D, write_model
 from vggsfm_tpu_torch.io.glb import reconstruction_to_glb
 from vggsfm_tpu_torch.models.camera import CameraPredictor, init_camera_
+from vggsfm_tpu_torch.models.dpt import DepthAnything, init_depth_anything_
 from vggsfm_tpu_torch.models.refine import refine_track
-from vggsfm_tpu_torch.models.sampling import sample_features4d
+from vggsfm_tpu_torch.models.sampling import (
+    bilinear_sample,
+    interpolate_bilinear,
+    sample_features4d,
+)
 from vggsfm_tpu_torch.models.tracker import TrackerPredictor, init_tracker_
 from vggsfm_tpu_torch.ops.triangulation import (
     triangulate_by_pair,
@@ -59,7 +67,18 @@ from vggsfm_tpu_torch.utils.camera_avg import (
     rank_by_interval,
     rank_by_midpoint,
 )
+from vggsfm_tpu_torch.utils.depth import (
+    align_depth_maps_to_sfm,
+    write_colmap_array,
+)
 from vggsfm_tpu_torch.utils.device import resolve_device
+from vggsfm_tpu_torch.utils.precision import f32_matmuls
+from vggsfm_tpu_torch.utils.visualizer import WORKERS as VISUAL_WORKERS
+from vggsfm_tpu_torch.utils.visualizer import (
+    visualize_query_points,
+    visualize_reprojections,
+    visualize_tracks,
+)
 
 
 def _score_camera_init(extr, intr, tracks, vis, fmat_mask, focal_scale):
@@ -188,6 +207,22 @@ class RunnerConfig:
     filter_invalid_frame: bool = True
     # write OUT/scene.glb: the point cloud and the camera frusta
     make_glb: bool = False
+    # dense monocular depth maps aligned to the sparse reconstruction,
+    # written to OUT/depths/*.bin (COLMAP array format)
+    dense_depth: bool = False
+    # a DepthAnythingV2 checkpoint (depth_anything_v2_vit{b,l}.pth); seeded
+    # ViT-B weights otherwise
+    depth_checkpoint: str | None = None
+    # the square side each frame is resized to for the DPT
+    depth_input_size: int = 518
+    # OUT/visuals: the query points of each query frame, the tracks over
+    # every frame (PNGs, GIF, mp4), the reprojections (PNGs, mp4)
+    visual_query_points: bool = False
+    visual_tracks: bool = False
+    make_reproj_frames: bool = False
+    # write a torch.profiler trace (Chrome JSON) of each sparse_reconstruct
+    # here, every stage a named range
+    profile_dir: str | None = None
 
 
 class VGGSfMRunner:
@@ -227,6 +262,10 @@ class VGGSfMRunner:
         self.tracker = tracker.to(self.device).eval()
         self._camera_state_dict = camera_state_dict
         self._camera = None
+        self._depth = None  # DepthAnything, built on first use
+        self._query_point_log: list = []  # (frame, xy, valid) per extract
+        self._profiler = None
+        self.trace_path = None
         self.timings: dict = {}
 
     @property
@@ -244,13 +283,41 @@ class VGGSfMRunner:
 
     @contextlib.contextmanager
     def _stage(self, name: str):
-        """Accumulate the wall time of a stage, device work included."""
+        """Accumulate the wall time of a stage, device work included; a
+        named range of the trace while profiling."""
         t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with (torch.profiler.record_function(name)
+              if self._profiler is not None else contextlib.nullcontext()):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.timings[name] = (self.timings.get(name, 0.0)
                               + time.perf_counter() - t0)
+
+    @contextlib.contextmanager
+    def _profiling(self):
+        """With `cfg.profile_dir`, a torch.profiler trace (CPU and, on the
+        GPU, CUDA activities) of the body, written as a Chrome trace into
+        that folder (its path in `trace_path`). The profiler stops when
+        the body ends, by an exception too, so a failed call leaves none
+        running."""
+        if self.cfg.profile_dir is None:
+            yield
+            return
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            self._profiler = prof
+            try:
+                yield
+            finally:
+                self._profiler = None
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        self.trace_path = os.path.join(
+            self.cfg.profile_dir, f"sparse_reconstruct_"
+            f"{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.json")
+        prof.export_chrome_trace(self.trace_path)
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
@@ -344,7 +411,8 @@ class VGGSfMRunner:
         detector in one batch; with `masks` (S, H, W), pixels above 0.5
         are invalid and the frames are extracted one by one. Each frame
         subsamples with its own permutation, drawn in frame order from a
-        generator seeded with `cfg.seed`.
+        generator seeded with `cfg.seed`. With `cfg.visual_query_points`
+        each frame's points are logged for the visuals.
         """
         cfg = self.cfg
         images = self._to_device(images)
@@ -357,6 +425,7 @@ class VGGSfMRunner:
                                       device=self.device)
                 qp, valid = get_query_points_batched(images[0, idx], gen,
                                                      method, max_pts)
+                self._log_query_points(query_indices, qp, valid)
                 return list(qp), list(valid)
             qps, valids = [], []
             for qframe in query_indices:
@@ -367,7 +436,13 @@ class VGGSfMRunner:
                                              max_pts, seg_invalid_mask=seg)
                 qps.append(qp)
                 valids.append(valid)
+            self._log_query_points(query_indices, qps, valids)
             return qps, valids
+
+    def _log_query_points(self, frames, qps, valids):
+        if self.cfg.visual_query_points:
+            self._query_point_log.extend(
+                (int(f), q, v) for f, q, v in zip(frames, qps, valids))
 
     @torch.inference_mode()
     def predict_tracks(self, images, fmaps, query_indices,
@@ -592,7 +667,13 @@ class VGGSfMRunner:
         > 0`; their coarse calls `extra_points.coarse`), and with
         `output_dir` the export (`export`: `export.build`,
         `export.write`): `save_reconstruction` and, with `cfg.make_glb`,
-        OUT/scene.glb. masks: optional (S, H, W) segmentation, pixels above
+        OUT/scene.glb. With `cfg.dense_depth`, the dense depth maps
+        (`dense_depth`, after the extra points), written under the export
+        to OUT/depths (`export.depths`). With `output_dir` and
+        `cfg.visual_query_points`, `visual_tracks` or `make_reproj_frames`,
+        the visuals to OUT/visuals (`visuals`) from the export's host copy.
+        With `cfg.profile_dir`, a trace of the call (`_profiling`).
+        masks: optional (S, H, W) segmentation, pixels above
         0.5 invalid for query points; image_names: the exported images'
         names; crop_params: (S, 8) rows of the loader, to export in the
         original images' pixels.
@@ -609,21 +690,31 @@ class VGGSfMRunner:
         `preliminary`, in the solve's frame order), the chosen initial
         cameras ``init_extrinsics`` and ``init_intrinsics``,
         ``init_scores`` ([neural, two-view] support, or None) and
-        ``query_indices``. Arrays stay tensors on the runner's device.
+        ``query_indices``; with `cfg.dense_depth` those of
+        `dense_reconstruct`. Arrays stay tensors on the runner's device.
 
         With `center_order` every stage and the export run on the swapped
         frames (image id 1 of the model is the top-ranked frame, under its
         own name); the per-frame outputs are then swapped back to the
         caller's frame order and ``center_perm`` is set.
         """
+        with self._profiling():
+            return self._sparse_reconstruct(images, masks, image_names,
+                                            output_dir, crop_params)
+
+    def _sparse_reconstruct(self, images, masks, image_names, output_dir,
+                            crop_params):
         cfg = self.cfg
         t_start = time.perf_counter()
+        # the caller's numpy frames serve the visuals as they are
+        host_images = None if torch.is_tensor(images) else np.asarray(images)
         x = torch.as_tensor(images if torch.is_tensor(images)
-                            else np.asarray(images)).to(self.device)
+                            else host_images).to(self.device)
         x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
         images = x[None]
         S, H, W = images.shape[1:4]
         self.timings = {}
+        self._query_point_log = []
 
         # 1. query frames
         query_indices = self.select_query_frames(images)
@@ -639,6 +730,8 @@ class VGGSfMRunner:
                                                device=self.device)]
             if masks is not None:
                 masks = np.asarray(masks)[center_perm]
+            if host_images is not None:
+                host_images = host_images[center_perm]
             if image_names is not None:
                 image_names = [image_names[i] for i in center_perm]
             if crop_params is not None:
@@ -677,24 +770,48 @@ class VGGSfMRunner:
                     num_extra=max(1, (H // iv) * (W // iv)),
                     by_neighbor=cfg.extra_by_neighbor,
                     extra_params=out["extra_params"])
+        if cfg.dense_depth:
+            with self._stage("dense_depth"):
+                self.dense_reconstruct(images, out)
         out["total_time"] = time.perf_counter() - t_start
         # the export, in the solve's frame order
         if output_dir is not None:
+            visuals = (cfg.visual_query_points or cfg.visual_tracks
+                       or cfg.make_reproj_frames)
             with self._stage("export"):
-                host = to_host({k: out.get(k) for k in EXPORT_KEYS})
+                want = {k: out.get(k) for k in EXPORT_KEYS}
+                if visuals:
+                    # one host copy serves the export and the visuals
+                    want["pred_vis"] = out["pred_vis"].float()
+                    want["query_log"] = {
+                        str(i): {"xy": q, "valid": v}
+                        for i, (_, q, v) in enumerate(self._query_point_log)}
+                    if host_images is None:
+                        want["images"] = images[0]
+                host = to_host(want)
                 self.save_reconstruction(host, (W, H), image_names,
                                          output_dir, crop_params=crop_params)
                 if cfg.make_glb:
                     reconstruction_to_glb(
                         host, os.path.join(output_dir, "scene.glb"),
                         image_size=(W, H))
+                if cfg.dense_depth:
+                    with self._stage("export.depths"):
+                        self.save_dense_depth_maps(
+                            out["depth_maps"], image_names, output_dir,
+                            crop_params=crop_params)
+            if visuals:
+                with self._stage("visuals"):
+                    self.write_visuals(
+                        host, host.get("images", host_images), output_dir)
         out["timings"] = dict(self.timings)
         if center_perm is not None:
             perm = torch.as_tensor(center_perm, device=self.device)
             for k in ("extrinsics", "intrinsics", "extra_params",
                       "valid_frame_mask", "valid_2d_mask",
-                      "init_extrinsics", "init_intrinsics"):
-                if out[k] is not None:
+                      "init_extrinsics", "init_intrinsics", "depth_maps",
+                      "depth_align_coeffs", "depth_inlier_frac"):
+                if out.get(k) is not None:
                     out[k] = out[k][perm]
             for k in ("pred_track", "pred_vis", "pred_score"):
                 out[k] = out[k][:, perm]
@@ -761,6 +878,142 @@ class VGGSfMRunner:
             parts["query_frame"].append(torch.full(
                 (N,), q, dtype=torch.int32, device=self.device))
         return {k: torch.cat(v) for k, v in parts.items()}
+
+    def write_visuals(self, host: dict, images, output_dir: str) -> None:
+        """OUT/visuals from host arrays (the export's copy): with
+        `cfg.visual_query_points` each logged query frame's points
+        (query_points_QQ_fFFFF.png), with `cfg.visual_tracks` the tracks
+        over every frame (tracks_FFFF.png, tracks.gif, tracks.mp4), with
+        `cfg.make_reproj_frames` the tracks against the reprojected points
+        (reproj_FFFF.png, reproj.mp4); the mp4s only where OpenCV has a
+        codec. images (S, H, W, 3) float in [0, 1] or uint8."""
+        cfg = self.cfg
+        vdir = os.path.join(output_dir, "visuals")
+        if cfg.visual_query_points:
+            def one(item):
+                qi, (qframe, _, _) = item
+                log = host["query_log"][str(qi)]
+                visualize_query_points(
+                    images[qframe], log["xy"],
+                    os.path.join(vdir,
+                                 f"query_points_{qi:02d}_f{qframe:04d}.png"),
+                    valid=log["valid"] > 0.5)
+
+            with ThreadPoolExecutor(VISUAL_WORKERS) as ex:
+                list(ex.map(one, enumerate(self._query_point_log)))
+        if cfg.visual_tracks:
+            visualize_tracks(images, host["pred_track"][0],
+                             host["pred_vis"][0], vdir)
+        if cfg.make_reproj_frames:
+            visualize_reprojections(
+                images, host["pred_track"][0], host["points3d"],
+                host["extrinsics"], host["intrinsics"], host["valid_tracks"],
+                vdir, extra_params=host["extra_params"])
+
+    def _load_depth_model(self) -> DepthAnything:
+        """The DPT depth model, built on first use in the runner's
+        precision: the checkpoint at `cfg.depth_checkpoint` when the path
+        exists (24 ``pretrained.blocks`` make it the ViT-L configuration,
+        else ViT-B; its register tokens, if any, counted), loaded strictly;
+        seeded ViT-B weights otherwise."""
+        if self._depth is None:
+            ckpt = self.cfg.depth_checkpoint
+            if ckpt and os.path.exists(ckpt):
+                sd = torch.load(ckpt, map_location="cpu")
+                depth = 1 + max(int(k.split(".")[2]) for k in sd
+                                if k.startswith("pretrained.blocks."))
+                regs = sd.get("pretrained.register_tokens")
+                kw = {"dtype": self.dtype, "num_register_tokens":
+                      0 if regs is None else regs.shape[1]}
+                model = (DepthAnything.vitl(**kw) if depth == 24
+                         else DepthAnything(**kw))
+                model.load_state_dict(sd)
+            else:
+                model = DepthAnything(dtype=self.dtype)
+                init_depth_anything_(
+                    model, torch.Generator().manual_seed(self.cfg.seed))
+            self._depth = model.to(self.device).eval()
+        return self._depth
+
+    @torch.inference_mode()
+    def _disparity(self, images) -> torch.Tensor:
+        """(1, S, H, W, 3) images in [0, 1] -> (S, H, W) relative
+        disparity, f32: each frame resized to `cfg.depth_input_size`
+        squared, through the DPT, resized back; one frame at a time, so
+        the peak memory is one ViT forward."""
+        model = self._load_depth_model()
+        r = self.cfg.depth_input_size
+        H, W = images.shape[2:4]
+        out = []
+        for s in range(images.shape[1]):
+            with f32_matmuls():
+                x = interpolate_bilinear(images[0, s:s + 1], (r, r))
+            d = model(x)
+            with f32_matmuls():
+                out.append(interpolate_bilinear(d[..., None], (H, W))[..., 0])
+        return torch.cat(out)
+
+    @torch.inference_mode()
+    def dense_reconstruct(self, images, predictions, sample_idx=None):
+        """Monocular disparity per frame of (1, S, H, W, 3) images,
+        aligned to the sparse solve's depths (`align_depth_maps_to_sfm`
+        on the observations of the valid tracks; its RANSAC draws from a
+        CPU generator seeded with `cfg.seed + 7`, or `sample_idx`
+        (S, 256, 2)). Adds ``depth_maps`` (S, H, W), ``depth_align_coeffs``
+        (S, 2) and ``depth_inlier_frac`` (S,) to `predictions` (tensors or
+        numpy in; tensors on the runner's device out)."""
+        images = self._to_device(images)
+        disp = self._disparity(images)
+
+        def dev(k, dtype=torch.float32):
+            v = predictions[k]
+            return torch.as_tensor(v if torch.is_tensor(v)
+                                   else np.asarray(v)).to(self.device, dtype)
+
+        obs = dev("valid_2d_mask", torch.bool) \
+            & dev("valid_tracks", torch.bool)[None]
+        depth_maps, a, b, inl = align_depth_maps_to_sfm(
+            disp, dev("extrinsics"), dev("points3d"), dev("pred_track")[0],
+            obs, torch.Generator().manual_seed(self.cfg.seed + 7),
+            sample_idx=sample_idx)
+        predictions.update(depth_maps=depth_maps,
+                           depth_align_coeffs=torch.stack([a, b], dim=-1),
+                           depth_inlier_frac=inl)
+        return predictions
+
+    @torch.inference_mode()
+    def save_dense_depth_maps(self, depth_maps, image_names, output_dir,
+                              crop_params=None):
+        """OUT/depths/<image stem>.bin (COLMAP array format), one per frame
+        of (S, H, W) depth maps; with crop_params, resampled on the maps'
+        device to each original image's resolution (the export's inverse
+        rescale: original pixel (x, y) lies at (x / ratio + left,
+        y / ratio + top) in the square the maps cover; the grid built in
+        f64, sampled in f32, bilinear, border-clamped)."""
+        depth_dir = os.path.join(output_dir, "depths")
+        os.makedirs(depth_dir, exist_ok=True)
+        maps = torch.as_tensor(depth_maps if torch.is_tensor(depth_maps)
+                               else np.asarray(depth_maps)).float()
+        S = maps.shape[0]
+        names = image_names or [f"image_{s:06d}" for s in range(S)]
+        for s in range(S):
+            dmap = maps[s]
+            if crop_params is not None:
+                real_w, real_h = (int(crop_params[s][0]),
+                                  int(crop_params[s][1]))
+                ratio = max(real_w, real_h) / float(self.cfg.img_size)
+                left, top = np.abs(np.asarray(crop_params[s][4:6],
+                                              np.float64))
+                gx, gy = np.meshgrid(np.arange(real_w), np.arange(real_h))
+                coords = torch.as_tensor(
+                    np.stack([gx / ratio + left, gy / ratio + top],
+                             axis=-1)[None], dtype=torch.float32,
+                    device=maps.device)
+                dmap = bilinear_sample(dmap[None, ..., None], coords,
+                                       padding_mode="border")[0, ..., 0]
+            stem = os.path.splitext(os.path.basename(names[s]))[0]
+            write_colmap_array(os.path.join(depth_dir, stem + ".bin"),
+                               dmap.cpu().numpy())
 
     def save_reconstruction(self, predictions, image_size, image_names,
                             output_dir, crop_params=None):
