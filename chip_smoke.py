@@ -155,7 +155,36 @@ prints no result line):
    within 0.01 of the export run's; (h) the CLI with --dense-depth
    --visual-tracks --reproj-frames --visual-query-points --profile-dir
    --load-gt in a child process: its wall time, AUC@30 >= 0.85, the
-   depth maps, visuals and trace it writes.
+   depth maps, visuals and trace it writes;
+13. video: `VideoRunner.run` (the video pipeline) at the JAX video CLI's
+   defaults (512 px, initial window 32, windows of 16, joint BA every 6,
+   1024 'auto' query points, one SIMPLE_RADIAL camera, midpoint ranking,
+   fine tracking, bf16, seeded full-width weights), without the camera
+   fill (seeded camera weights give arbitrary poses), on 144 frames of
+   `render_two_plane_scene` (baseline 0.02 a frame, foreground square 0.6
+   x its depth) with the export:
+   `video.init`, each window's time, tracker share, retries and kernel
+   launches per window call, `video.joint_ba`, the registered frames,
+   points and observations, AUC@30 against the planted cameras, peak
+   memory. Gates: every frame registered, AUC@30 >= 0.85, finite outputs,
+   the five kernels' launch counts exactly as the counted coarse, fine and
+   camera calls predict, the exported model read back equal to the
+   predictions. Then the CLI's default configuration, the camera fill
+   on, on the first 48 frames (the initial window and one window whose
+   unregistered frames take the camera predictor's poses aligned onto the
+   map): every frame registered, finite outputs, the fill run, the launch
+   counts exact with the fill's camera forwards; each kernel's inputs are
+   recorded at every shape this run gives it (the time blocks at L = 17
+   and 32, 2048-track windows, 128 x 128 maps, the camera at L = 17 and
+   32) and held against its plain version there afterwards, with the
+   kernel phases' bounds; `bundle_adjust_sparse` on the card against the
+   CPU at
+   a reduced size (f32, TF32 off); a device-only profile of the pipeline
+   on the first 48 frames; `python3 -m vggsfm_tpu_torch.video_demo` on
+   those 48 frames as PNGs (--init-window 16 --window 8) in a child
+   process (every frame registered); and two such processes as the hosts
+   of one multi-host run (--num-hosts 2, a shared exchange folder): their
+   initial maps equal, every frame registered.
 
 Then one JSON line describing each kernel, the card line again, and as the
 last line {"ok": true, "device": {...}}. Needs a CUDA GPU and the repo
@@ -165,6 +194,7 @@ checkout around this file; imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -2683,6 +2713,521 @@ def dense_cli_run(report: dict) -> None:
         raise AssertionError("the CLI's dense run misses the gates")
 
 
+# ------------------------------------------------------------ phase 13
+
+# the video phase's sequence: render_two_plane_scene's camera moves along x
+# by VIDEO_BASELINE a frame (2.6 px of background parallax at 512 px); the
+# background, sized to the path, fills every view, and the foreground
+# square (half extent VIDEO_FG_FRAC x its depth, 1.2 against the path's
+# +-1.43) stays in most views: where only the background plane is seen,
+# the 6-point DLT of PnP is degenerate (coplanar points)
+VIDEO_FRAMES, VIDEO_SIZE, VIDEO_BASELINE, VIDEO_FG_FRAC = 144, 512, 0.02, 0.6
+
+
+class KernelShapes:
+    """Record the inputs of each kernel wrapper's first call at each shape
+    while a path runs (the layers and the tracker call the wrappers under
+    these module names), to hold the kernels against their plain versions
+    at exactly those shapes afterwards. Recording launches nothing."""
+
+    def __init__(self):
+        from vggsfm_tpu_torch.models import layers, tracker
+
+        self.seen = {}
+        self._mods = {"fused_transformer_block": layers,
+                      "fused_ln_attn": layers, "fused_ln_mlp": layers,
+                      "corr_sample_kernel": tracker}
+        self._orig = {}
+
+    def _key(self, name, args):
+        if name == "corr_sample_kernel":
+            levels, coords = args[0], args[1]
+            return (name, tuple(coords.shape), tuple(levels[0].shape),
+                    len(levels), str(levels[0].dtype), args[3])
+        seq = args[-2] if name != "fused_ln_mlp" else 0
+        return (name, tuple(args[0].shape), seq, str(args[0].dtype))
+
+    def __enter__(self):
+        for name, mod in self._mods.items():
+            fn = getattr(mod, name)
+            self._orig[name] = fn
+
+            def rec(*args, _fn=fn, _name=name, **kw):
+                key = self._key(_name, args)
+                if key not in self.seen:
+                    self.seen[key] = (
+                        [[t.clone() for t in a] if isinstance(a, list)
+                         else (a.clone() if hasattr(a, "clone") else a)
+                         for a in args], dict(kw))
+                return _fn(*args, **kw)
+
+            setattr(mod, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for name, mod in self._mods.items():
+            setattr(mod, name, self._orig[name])
+        return False
+
+
+def check_kernel_shapes(shapes: KernelShapes, report: dict) -> None:
+    """Each recorded call once more through the kernel and through its
+    plain version, with the kernel phases' bounds (f32 1e-4; bf16 2 ulp of
+    |ref| + 2^-5; correlation 1e-4 plus half a bf16 ulp), and the time of
+    both. These launches are made after the path's counts were read."""
+    import torch
+
+    from vggsfm_tpu_torch.ops import corr as cm
+    from vggsfm_tpu_torch.ops import fused_mlp as fm
+
+    rows = report.setdefault("video_kernel_shapes", [])
+    plain = {"fused_transformer_block": fm.fused_transformer_block_ref,
+             "fused_ln_attn": fm.fused_ln_attn_ref,
+             "fused_ln_mlp": fm.fused_ln_mlp_ref}
+    for key, (args, kw) in sorted(shapes.seen.items(), key=str):
+        name = key[0]
+        if name == "corr_sample_kernel":
+            levels, coords, feats, radius = args[:4]
+            out_dtype = kw.get("out_dtype", args[4] if len(args) > 4
+                               else torch.float32)
+
+            def kern():
+                return cm.corr_sample_kernel(levels, coords, feats, radius,
+                                             out_dtype)
+
+            def ref():
+                return cm.corr_sample_plain(levels, coords, feats, radius,
+                                            torch.float32)
+
+            C = feats.shape[-1]
+            label = ("corr_sample_pallas_smallc" if C < cm.SMALL_C
+                     else "corr_sample_pallas")
+            out, want = kern(), ref()
+            err, frac = corr_err(out, want)
+            shape = (f"F={coords.shape[0]} N={coords.shape[1]} "
+                     f"{len(levels)} levels of {tuple(levels[0].shape[1:])} "
+                     f"r={radius} {str(levels[0].dtype)[6:]}")
+        else:
+            label = name
+
+            def kern():
+                return getattr(fm, name)(*args, **kw)
+
+            def ref():
+                return plain[name](*args, **kw)
+
+            out, want = kern(), ref()
+            frac, err, _ = err_over_bound(out, want)
+            x = args[0]
+            shape = (f"R={x.shape[0]} C={x.shape[1]}"
+                     + (f" L={args[-2]}" if name != "fused_ln_mlp" else "")
+                     + f" {str(x.dtype)[6:]}")
+        ok = bool(torch.isfinite(out.float()).all()) and frac <= 1.0
+        ms = cuda_time_ms(kern, 5)
+        plain_ms = cuda_time_ms(ref, 3)
+        print(f"video: kernel {label} at the video path's shape {shape}: "
+              f"max_abs_err={err:.3e} ({frac:.3f} of the bound) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        rows.append({"name": label, "shape": shape, "max_abs_err": err,
+                     "err_over_bound": frac, "ms": ms, "plain_ms": plain_ms})
+        if not ok:
+            raise AssertionError(f"{label} at {shape}: {frac} of the bound")
+
+
+def sparse_ba_agreement(report: dict) -> None:
+    """`bundle_adjust_sparse` on the card against the same call on the CPU
+    (f32, TF32 off) at a reduced size of the joint BA: 48 frames, 3000
+    points, each seen by the frames of a 12-frame span, 0.3 px noise, the
+    joint BA's options (shared focal and radial term, Cauchy 4 px, 12 LM
+    iterations x 30 PCG rounds). The card sums its segments with atomics:
+    final costs within 1e-3 relative, poses within 1e-2 and points within
+    5e-2 (a shared focal's shallow valley, as against the JAX package on
+    the CPU)."""
+    import numpy as np
+    import torch
+
+    from vggsfm_tpu_torch.ba import SparseBAConfig, bundle_adjust_sparse
+
+    rng = np.random.default_rng(5)
+    S, P, f = 48, 3000, 512.0
+    X = rng.uniform([-3, -2, 5], [3, 2, 9], size=(P, 3))
+    extr = np.zeros((S, 3, 4))
+    fr, pt, xy = [], [], []
+    for s in range(S):
+        a = 0.004 * (s - S / 2)
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        t = np.array([0.04 * (s - S / 2), 0.0, 0.0])
+        extr[s] = np.concatenate([R, t[:, None]], axis=1)
+        Xc = X @ R.T + t
+        uv = Xc[:, :2] / Xc[:, 2:]
+        uv = uv * (1 - 0.03 * (uv ** 2).sum(1, keepdims=True))
+        px = f * uv + 256.0
+        sel = np.nonzero(np.abs(np.arange(P) * S / P - s) < 6)[0]
+        fr.append(np.full(len(sel), s))
+        pt.append(sel)
+        xy.append(px[sel])
+    fr, pt = np.concatenate(fr), np.concatenate(pt)
+    xy = np.concatenate(xy) + rng.normal(scale=0.3, size=(len(fr), 2))
+    intr = np.tile([[f * 1.03, 0, 256.0], [0, f * 1.03, 256.0], [0, 0, 1]],
+                   (S, 1, 1))
+    extr_n = extr.copy()
+    extr_n[1:, :, 3] += rng.normal(scale=0.01, size=(S - 1, 3))
+    X_n = X + rng.normal(scale=0.03, size=X.shape)
+    cfg = SparseBAConfig(max_iterations=12, refine_focal=True,
+                         refine_extra=True, shared_intrinsics=True,
+                         cg_iters=30, robust_loss="cauchy", loss_scale=4.0)
+
+    def run(dev):
+        def t(a, dtype=torch.float32):
+            return torch.as_tensor(a).to(dev, dtype)
+
+        return bundle_adjust_sparse(
+            t(extr_n), t(intr), t(X_n), t(fr, torch.long), t(pt, torch.long),
+            t(xy), torch.ones(len(fr), device=dev),
+            extra_params=t(np.full((S, 1), -0.02)), cfg=cfg)
+
+    run("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = run("cuda")
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    gf, cf = float(g[4]["final_cost"]), float(c[4]["final_cost"])
+    d_pose = float((g[0].cpu() - c[0]).abs().max())
+    d_pts = float((g[3].cpu() - c[3]).abs().max())
+    ok = (abs(gf - cf) <= 1e-3 * cf and d_pose <= 1e-2 and d_pts <= 5e-2
+          and gf < 0.1 * float(g[4]["initial_cost"]))
+    print(f"video: bundle_adjust_sparse card vs CPU, {S} frames, {P} points, "
+          f"{len(fr)} observations, shared focal + k, 12 x 30: card "
+          f"{gpu_s:.3f} s, CPU {cpu_s:.3f} s; final cost {gf:.4f} vs "
+          f"{cf:.4f} (initial {float(c[4]['initial_cost']):.1f}), poses "
+          f"within {d_pose:.2e} (1e-2), points {d_pts:.2e} (5e-2), focal "
+          f"{float(g[1][0, 0, 0]):.3f} vs {float(c[1][0, 0, 0]):.3f} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    report["video_sparse_ba"] = {"card_s": gpu_s, "cpu_s": cpu_s,
+                                 "final_cost": [gf, cf], "pose_diff": d_pose,
+                                 "point_diff": d_pts}
+    if not ok:
+        raise AssertionError("bundle_adjust_sparse: card and CPU disagree")
+
+
+def check_video_export(out_dir, preds, names) -> None:
+    """The exported model read back with the port's reader against the
+    predictions: every frame under its name, tvec the translation and qvec
+    the rotation (1e-6 beyond its f32 distance from orthonormal), the one
+    SIMPLE_RADIAL camera [f, cx, cy, k], every observed point with its xyz
+    and the observation count."""
+    import numpy as np
+
+    from vggsfm_tpu_torch.io import read_model
+    from vggsfm_tpu_torch.io.bridge import _quat_to_matrix
+
+    rec = read_model(os.path.join(out_dir, "sparse"))
+    T = len(preds["extrinsics"])
+    assert sorted(rec.images) == list(range(1, T + 1))
+    n_obs = 0
+    for t in range(T):
+        im = rec.images[t + 1]
+        assert im.name == names[t], im.name
+        e = preds["extrinsics"][t].astype(np.float64)
+        assert np.array_equal(im.tvec, e[:, 3])
+        R = e[:, :3]
+        orth = np.abs(R @ R.T - np.eye(3)).max()
+        assert np.abs(_quat_to_matrix(im.qvec) - R).max() <= orth + 1e-6
+        n_obs += len(im.xys)
+    assert n_obs == preds["num_observations"], (n_obs,
+                                                preds["num_observations"])
+    cam = rec.cameras[1]
+    K, k = preds["intrinsics"][0], preds["extra_params"][0]
+    assert len(rec.cameras) == 1 and cam.model == "SIMPLE_RADIAL"
+    assert np.allclose(cam.params, [K[0, 0], K[0, 2], K[1, 2], k[0]],
+                       rtol=0, atol=1e-4)
+    for pid, p3 in rec.points3D.items():
+        assert np.array_equal(p3.xyz, preds["points3d"][pid].astype(
+            np.float64))
+    return len(rec.points3D)
+
+
+def expected_launches(n_coarse: int, n_fine: int, n_camera: int) -> dict:
+    """The five kernels' launches that counted tracker and camera calls
+    make: 72 block + 72 `ln_mlp` + 6 correlation launches per coarse
+    call, 24 block + 6 flat correlation launches per fine call, 16
+    `ln_attn` and 8 wide `ln_mlp` calls per camera forward."""
+    from vggsfm_tpu_torch.ops import fused_mlp as fm
+
+    return {"fused_transformer_block": 72 * n_coarse + 24 * n_fine,
+            "fused_ln_mlp": 72 * n_coarse + 8 * fm.WIDE_MLP_KERNELS
+            * n_camera,
+            "fused_ln_attn": 16 * fm.ATTN_KERNELS * n_camera,
+            "corr_sample_pallas": 6 * n_coarse,
+            "corr_sample_pallas_smallc": 6 * n_fine}
+
+
+def video_phase(report: dict, launches: dict, shared: dict) -> None:
+    """The video pipeline: `VideoRunner.run` at the JAX CLI's defaults (512
+    px, initial window 32, windows of 16, joint BA every 6 windows, 1024
+    query points 'auto', one SIMPLE_RADIAL camera, midpoint ranking, fine
+    tracking, bf16, seeded full-width weights) without the camera fill on
+    `render_two_plane_scene` (VIDEO_FRAMES frames), with the export: the
+    stage times, each window's time, tracker share, retries and kernel
+    launches, the registered frames, points and observations, AUC@30
+    against the planted cameras, peak memory. Gates: every frame
+    registered, AUC@30 >= 0.85, finite outputs, launch counts equal to 72
+    block + 72 `ln_mlp` + 6 correlation launches per coarse call, 24 block
+    + 6 flat correlation launches per fine call and 16 x 4 `ln_attn` + 8 x
+    3 `ln_mlp` per camera forward, the model read back. Then each kernel
+    against its plain version at the shapes that a second run gives it:
+    the CLI's default configuration, the camera fill on, on the first 48
+    frames, its launch counts exact with the fill's camera forwards
+    (recorded there so that the timed run's wall and peak carry no
+    recording); `bundle_adjust_sparse` card vs CPU; a device-only
+    profile of the pipeline on the first 48 frames; and, at once on the
+    card, the CLI in a child process on a 48-frame folder (--init-window
+    16 --window 8) and two host processes of the CLI's multi-host run on
+    that folder with a shared exchange directory: every frame registered,
+    the hosts' initial maps equal."""
+    import numpy as np
+    import torch
+
+    from vggsfm_tpu_torch.geometry.metrics import pose_auc30
+    from vggsfm_tpu_torch.ops import fused_mlp as fm
+    from vggsfm_tpu_torch.runner import RunnerConfig, VGGSfMRunner
+    from vggsfm_tpu_torch.utils.synth import (
+        render_two_plane_scene,
+        write_scene_folder,
+    )
+    from vggsfm_tpu_torch.video import VideoConfig, VideoRunner
+
+    # the earlier phases' runner and scene are done with: their memory goes
+    # back to the card for this phase's three CLI processes
+    shared.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    T, size = VIDEO_FRAMES, VIDEO_SIZE
+    t0 = time.perf_counter()
+    scene = render_two_plane_scene(T, size, baseline=VIDEO_BASELINE,
+                                   fg_half_extent_frac=VIDEO_FG_FRAC)
+    render_s = time.perf_counter() - t0
+    images = scene["images"]
+
+    # the video CLI's configuration at its defaults, but for the camera
+    # fill: a frame that PnP does not register takes the query frame's pose
+    # (refined against the map) instead of the camera predictor's, which
+    # with seeded, untrained weights is an arbitrary pose (the 48-frame
+    # run and the CLI runs below keep the fill)
+    scfg = RunnerConfig(img_size=size, query_frame_num=1, max_query_pts=1024,
+                        query_method="auto", camera_type="SIMPLE_RADIAL",
+                        query_by_midpoint=True)
+    runner = VideoRunner(VGGSfMRunner(scfg, device="cuda"),
+                         VideoConfig(camera_type="SIMPLE_RADIAL",
+                                     align_with_camera_predictor=False))
+    r = runner.r
+    calls = {"coarse": 0, "fine": 0, "camera": 0}
+    coarse, fine = r._coarse_track, r._fine_track
+
+    def counted_coarse(*a, **k):
+        calls["coarse"] += 1
+        return coarse(*a, **k)
+
+    def counted_fine(*a, **k):
+        calls["fine"] += 1
+        return fine(*a, **k)
+
+    r._coarse_track, r._fine_track = counted_coarse, counted_fine
+    r.camera.register_forward_hook(
+        lambda *a: calls.__setitem__("camera", calls["camera"] + 1))
+    per_window = []
+    track = runner._track_window
+
+    def counted_track(images_w, query_xy, frames_w=None):
+        before = dict(fm.launch_counts)
+        out = track(images_w, query_xy, frames_w=frames_w)
+        per_window.append({"frames": len(images_w), "tracks": len(query_xy),
+                           **{n: c - before[n]
+                              for n, c in fm.launch_counts.items()}})
+        return out
+
+    runner._track_window = counted_track
+    out_dir = os.path.join(OUT_DIR, "video")
+    names = [f"frame_{t:05d}.png" for t in range(T)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    preds = runner.run(images, output_dir=out_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.update(fm.launch_counts)
+    fm.reset_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    gt = torch.as_tensor(scene["extrinsics"])
+    auc = float(pose_auc30(torch.as_tensor(preds["extrinsics"]), gt))
+    finite = all(bool(np.isfinite(preds[k]).all()) for k in (
+        "extrinsics", "intrinsics", "extra_params", "points3d"))
+    nc, nf, ncam = calls["coarse"], calls["fine"], calls["camera"]
+    want = expected_launches(nc, nf, ncam)
+    t = runner.timings
+    print(f"video: VideoRunner.run, {T} frames x {size} px (render "
+          f"{render_s:.1f} s, host), windows 32 / 16 / joint BA every 6, "
+          f"1024 'auto' points, SIMPLE_RADIAL shared, bf16: {wall:.2f} s "
+          f"(first run in this process); video.init {t['video.init']:.3f} s "
+          f"(" + ", ".join(f"{k} {v:.3f}" for k, v in r.timings.items()
+                           if not k.startswith("sfm.")) + ")"
+          f", windows {t['video.windows']:.3f} s (tracker "
+          f"{t['video.track']:.3f} s), video.joint_ba "
+          f"{t['video.joint_ba']:.3f} s; peak {peak_gb:.2f} GiB",
+          flush=True)
+    for i, w in enumerate(runner.windows):
+        print(f"  window {i}: frames [{w['frames'][0]}, {w['frames'][1]}) "
+              f"from query {w['query']}: {w['seconds']:.3f} s, tracker "
+              f"{w['track_seconds']:.3f} s "
+              f"({w['track_seconds'] / w['seconds']:.0%}), attempts "
+              f"{w['attempts']}, PnP-registered {w['registered_by_pnp']}, "
+              f"camera fill {w['camera_aligned']}")
+    for i, c in enumerate(per_window):
+        print(f"  window call {i}: {c}")
+    n_pts = check_video_export(out_dir, preds, names)
+    ok = (bool(preds["registered"].all()) and auc >= 0.85 and finite
+          and launches == want)
+    print(f"video: registered {int(preds['registered'].sum())} / {T}, "
+          f"points {preds['num_points']} ({n_pts} in the model read back), "
+          f"observations {preds['num_observations']}, AUC@30 {auc:.4f} "
+          f"(>= 0.85), focal {float(preds['intrinsics'][0, 0, 0]):.2f} "
+          f"(planted {size}), k {float(preds['extra_params'][0, 0]):.4f}; "
+          f"calls: {nc} coarse, {nf} fine, {ncam} camera; launches "
+          f"{launches} (expected {want}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    report["video"] = {
+        "wall_s": wall, "render_s": render_s, "timings": dict(t),
+        "sparse_timings": dict(r.timings), "windows": runner.windows,
+        "window_calls": per_window, "registered": int(
+            preds["registered"].sum()), "points": int(preds["num_points"]),
+        "observations": int(preds["num_observations"]), "auc30": auc,
+        "peak_mem_gib": peak_gb, "calls": dict(calls)}
+    if not ok:
+        raise AssertionError("the video run misses its gates")
+
+    # the CLI's default configuration, the camera fill on, on the initial
+    # window and one window: each kernel's inputs recorded at every shape
+    # it gives (the camera at L = 17 in the fill), then held against the
+    # plain versions
+    fill = VideoRunner(r, VideoConfig(camera_type="SIMPLE_RADIAL"))
+    shapes = KernelShapes()
+    calls.update(coarse=0, fine=0, camera=0)
+    torch.cuda.reset_peak_memory_stats()
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    with shapes:
+        preds = fill.run(images[:48])
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    fill_gb = torch.cuda.max_memory_allocated() / 2**30
+    got = dict(fm.launch_counts)
+    fm.reset_launch_counts()
+    nc, nf, ncam = calls["coarse"], calls["fine"], calls["camera"]
+    want = expected_launches(nc, nf, ncam)
+    n_fill = sum(w["camera_aligned"] for w in fill.windows)
+    finite = all(bool(np.isfinite(preds[k]).all()) for k in (
+        "extrinsics", "intrinsics", "extra_params", "points3d"))
+    ok = (bool(preds["registered"].all()) and finite and n_fill >= 1
+          and ncam == 1 + n_fill and got == want)
+    auc = float(pose_auc30(torch.as_tensor(preds["extrinsics"]), gt[:48]))
+    print(f"video: the camera fill on (the CLI's default), 48 frames, the "
+          f"kernels' inputs recorded: {fill_s:.2f} s, peak {fill_gb:.2f} "
+          f"GiB (the recorded copies included); windows filled by the "
+          f"camera {n_fill} of {len(fill.windows)}, registered "
+          f"{int(preds['registered'].sum())} / 48, AUC@30 {auc:.4f} (not "
+          f"gated: seeded camera weights); calls: {nc} coarse, {nf} "
+          f"fine, {ncam} camera; launches {got} (expected {want}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    report["video_fill"] = {"wall_s": fill_s, "peak_mem_gib": fill_gb,
+                            "calls": dict(calls),
+                            "launches": got, "windows": fill.windows}
+    if not ok:
+        raise AssertionError("the camera-fill run misses its gates")
+    del fill
+    check_kernel_shapes(shapes, report)
+    del shapes
+    sparse_ba_agreement(report)
+
+    # the device's busy share over the pipeline's first 48 frames (the
+    # initial window, one window, the final joint BA), device-only trace
+    report["video_profile"] = profile_slice(
+        lambda: runner.run(images[:48]), "video_profile.txt", host=False)
+    del runner, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI on a 48-frame folder, alone and as two hosts, the three
+    # processes at once on the card
+    scene_dir = os.path.join(OUT_DIR, "video_frames")
+    write_scene_folder({k: v[:48] for k, v in scene.items()}, scene_dir)
+    env = dict(os.environ, PYTHONPATH=HERE)
+    base = [sys.executable, "-m", "vggsfm_tpu_torch.video_demo", scene_dir,
+            "--init-window", "16", "--window", "8"]
+    ex = os.path.join(OUT_DIR, "video_exchange")
+    if os.path.isdir(ex):
+        import shutil
+
+        shutil.rmtree(ex)
+    hosts = ["--output", os.path.join(OUT_DIR, "video_hosts"),
+             "--num-hosts", "2", "--exchange-dir", ex, "--host-id"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for cmd in (
+            base + ["--output", os.path.join(OUT_DIR, "video_cli")],
+            base + hosts + ["1"], base + hosts + ["0"])]
+    outs, walls = [], []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+            walls.append(time.perf_counter() - t0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (o, e) in zip(procs, outs):
+        if p.returncode != 0:
+            print(o[-3000:], e[-3000:])
+            raise AssertionError(f"a video CLI process exited "
+                                 f"{p.returncode}")
+    summary = json.loads(outs[0][0].strip().splitlines()[-1])
+    summary0 = json.loads(outs[2][0].strip().splitlines()[-1])
+    cli_s, hosts_s = walls[0], max(walls)
+    print(f"video: python3 -m vggsfm_tpu_torch.video_demo on 48 PNGs, "
+          f"--init-window 16 --window 8, in a child process: {cli_s:.1f} s "
+          f"(beside the two hosts below on the same card); {summary}",
+          flush=True)
+    assert summary["registered"] == 48, summary
+    p0 = np.load(os.path.join(ex, "partial_000.npz"))
+    p1 = np.load(os.path.join(ex, "partial_001.npz"))
+    P0 = int(p0["shared_points"])
+    same = (P0 == int(p1["shared_points"]) and all(
+        np.array_equal(p0[k][m], p1[k][m]) for k, m in (
+            ("xyz", slice(0, P0)), ("extrinsics", slice(0, 16)),
+            ("intrinsics", slice(0, 16)), ("extra", slice(0, 16)))))
+    ok = same and summary0["registered"] == 48
+    print(f"video: two host processes (--num-hosts 2) on one card, shared "
+          f"exchange folder: {hosts_s:.1f} s for the three processes; "
+          f"blocks {p0['block'].tolist()} and {p1['block'].tolist()}, "
+          f"shared initial map of {P0} points "
+          f"equal on both hosts: {same}; host 0: {summary0} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    report["video_cli"] = {"wall_s": cli_s, "summary": summary,
+                           "hosts_wall_s": hosts_s, "hosts_summary": summary0,
+                           "initial_maps_equal": same}
+    if not ok:
+        raise AssertionError("the two hosts' initial maps differ or a frame "
+                             "is missing")
+
+
 def main() -> int:
     try:
         import torch
@@ -2759,7 +3304,7 @@ def main() -> int:
     extra = {}
     # by main-path slice
     launches = {"tracker": {}, "camera": {}, "few_tracks": {},
-                "reconstruct": {}, "export": {}, "dense": {}}
+                "reconstruct": {}, "export": {}, "dense": {}, "video": {}}
     shared = {}
     for phase, fn in (
             ("kernels", lambda: kernel_phase(report, extra)),
@@ -2779,7 +3324,9 @@ def main() -> int:
              lambda: export_phase(extra, launches["export"], shared)),
             ("dense and visuals",
              lambda: dense_phase(extra, launches["dense"],
-                                 launches["export"], shared))):
+                                 launches["export"], shared)),
+            ("video", lambda: video_phase(extra, launches["video"],
+                                          shared))):
         t0 = time.perf_counter()
         try:
             fn()

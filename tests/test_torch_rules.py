@@ -3,7 +3,8 @@
 * No module of vggsfm_tpu_torch/ (nor chip_smoke.py) imports jax, flax
   or the JAX package.
 * Entry points run on the GPU unless asked for the CPU: asking for
-  "cuda" where there is none raises (the CLI's --device too).
+  "cuda" where there is none raises (the CLIs' --device too, the video
+  runner and its CLI included).
 * ops/_build.py imports without CUDA and builds for sm_90a.
 * chip_smoke.py fails without a GPU, and alone in a directory.
 * On a GPU (marked `cuda`, skipped elsewhere): the preliminary cameras on
@@ -63,7 +64,9 @@ def test_port_imports_no_jax():
             "datasets/__init__.py", "datasets/demo_loader.py",
             "demo.py", "models/dpt.py", "models/dinov2.py",
             "models/convert.py", "utils/depth.py", "utils/visualizer.py",
-            "io/ply.py"} <= rel
+            "io/ply.py", "ba/sparse_lm.py", "geometry/alignment.py",
+            "parallel/merge.py", "video/__init__.py", "video/runner.py",
+            "video_demo.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imports(p)
            if m.split(".")[0] in BANNED]
     assert bad == []
@@ -132,6 +135,30 @@ def test_demo_cli_raises_without_gpu_unless_asked_for_the_cpu(tmp_path):
         demo.main([str(tmp_path / "missing")])
     with pytest.raises(FileNotFoundError, match="no images"):
         demo.main([str(tmp_path), "--device", "cpu"])
+
+
+def test_video_entry_points_raise_without_gpu_unless_asked_for_the_cpu(
+        tmp_path):
+    """The video runner runs where its sparse runner runs, the GPU unless
+    the CPU is named: building it for "cuda" where there is none raises,
+    and so does `python -m vggsfm_tpu_torch.video_demo` before it reads
+    the frames; with `--device cpu` the CLI goes on to the frames (here an
+    empty folder)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from vggsfm_tpu_torch import video_demo
+    from vggsfm_tpu_torch.runner import RunnerConfig, VGGSfMRunner
+    from vggsfm_tpu_torch.video import VideoConfig, VideoRunner
+
+    cfg = RunnerConfig(img_size=64, query_frame_num=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VideoRunner(VGGSfMRunner(cfg), VideoConfig())
+    assert VideoRunner(VGGSfMRunner(cfg, device="cpu"),
+                       VideoConfig()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        video_demo.main([str(tmp_path / "missing")])
+    with pytest.raises(FileNotFoundError, match="no images"):
+        video_demo.main([str(tmp_path), "--device", "cpu"])
 
 
 def test_build_module_imports_without_cuda_and_targets_sm90a():

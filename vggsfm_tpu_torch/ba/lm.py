@@ -114,7 +114,12 @@ def _project(R, t, f, pp, k, X):
     """Every point through every camera: R (S, 3, 3), t (S, 3), f (S,),
     pp (S, 2), k (S, K), X (N, 3) -> (pixels (S, N, 2), depth (S, N),
     and the intermediates of the Jacobian)."""
-    Y = torch.einsum("sij,nj->sni", R, X)  # R X
+    return _project_rotated(torch.einsum("sij,nj->sni", R, X), t, f, pp, k)
+
+
+def _project_rotated(Y, t, f, pp, k):
+    """`_project` from the rotated points Y = R X (S, N, 3). The sparse
+    solver passes one observation per row (S = observations, N = 1)."""
     Xc = Y + t[:, None]
     z = Xc[..., 2]
     z_safe = _z_safe(z)

@@ -395,6 +395,14 @@ class VGGSfMRunner:
             return pose_encoding_to_extri_intri(pose_enc[0], (H, W))
 
     @torch.inference_mode()
+    def camera_forward(self, images):
+        """One camera-predictor forward (4 trunk iterations) on (B, S, H, W,
+        3) images in [0, 1]: the predictor's dict, ``pred_pose_enc``
+        (B, S, 8). The JAX runner's `_camera_forward`, which the video
+        runner calls per window."""
+        return self.camera(self._to_device(images), iters=4)
+
+    @torch.inference_mode()
     def fmaps(self, images):
         """Coarse feature maps of (B, S, H, W, 3) images in [0, 1]."""
         images = self._to_device(images)
