@@ -185,6 +185,27 @@ prints no result line):
    process (every frame registered); and two such processes as the hosts
    of one multi-host run (--num-hosts 2, a shared exchange folder): their
    initial maps equal, every frame registered.
+14. imc: a synthetic IMC tree in smoke_out/imc_tree (one location,
+   set_100/{images,calibration,sub_set}: 25 frames of
+   `render_two_plane_scene` at 1024 px, baseline 0.06 a frame, cropped to
+   1024 x 768 with the principal point moved, JPEG quality 95; .npz
+   calibrations of the planted cameras; bag lists 5bag_000, 10bag_000 and
+   25bag_000 spread over the sequence); `python3 -m
+   vggsfm_tpu_torch.imc_eval` at its defaults (1024 px, 3 query frames,
+   4096 ALIKED points, fine tracking, seeded weights) with the submission
+   and the packed scenes, in a child process: the wall, stage times and
+   AUC@30 of each bag; gates: AUC@30 >= 0.85 and >= 100 valid tracks per
+   bag, the files read back (`load_scene_submission`), each packed model
+   equal to the poses and keypoints written. Then each bag in this process
+   on a runner of the CLI's configuration with the kernels' inputs
+   recorded: launch counts exact per bag (`expected_launches`), the packed
+   model equal to the predictions; a device-only profile of the 25-frame
+   bag (smoke_out/imc_profile.txt); every kernel against its plain version
+   at each recorded shape (the time blocks and the camera at L = 5, 10
+   and 25); `estimate_essential`, `estimate_homography` and
+   `absolute_pose_ransac(refine="epnp")` on the card against the CPU on
+   the same draws at the JAX package's defaults (4 pairs of 4096
+   correspondences), each timed on the card with its host syncs.
 
 Then one JSON line describing each kernel, the card line again, and as the
 last line {"ok": true, "device": {...}}. Needs a CUDA GPU and the repo
@@ -2770,17 +2791,19 @@ class KernelShapes:
         return False
 
 
-def check_kernel_shapes(shapes: KernelShapes, report: dict) -> None:
+def check_kernel_shapes(shapes: KernelShapes, report: dict,
+                        path: str = "video") -> None:
     """Each recorded call once more through the kernel and through its
     plain version, with the kernel phases' bounds (f32 1e-4; bf16 2 ulp of
     |ref| + 2^-5; correlation 1e-4 plus half a bf16 ulp), and the time of
-    both. These launches are made after the path's counts were read."""
+    both; `path` names the path that gave the shapes. These launches are
+    made after the path's counts were read."""
     import torch
 
     from vggsfm_tpu_torch.ops import corr as cm
     from vggsfm_tpu_torch.ops import fused_mlp as fm
 
-    rows = report.setdefault("video_kernel_shapes", [])
+    rows = report.setdefault(f"{path}_kernel_shapes", [])
     plain = {"fused_transformer_block": fm.fused_transformer_block_ref,
              "fused_ln_attn": fm.fused_ln_attn_ref,
              "fused_ln_mlp": fm.fused_ln_mlp_ref}
@@ -2825,7 +2848,7 @@ def check_kernel_shapes(shapes: KernelShapes, report: dict) -> None:
         ok = bool(torch.isfinite(out.float()).all()) and frac <= 1.0
         ms = cuda_time_ms(kern, 5)
         plain_ms = cuda_time_ms(ref, 3)
-        print(f"video: kernel {label} at the video path's shape {shape}: "
+        print(f"{path}: kernel {label} at the {path} path's shape {shape}: "
               f"max_abs_err={err:.3e} ({frac:.3f} of the bound) ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} {'ok' if ok else 'FAIL'}",
               flush=True)
@@ -3228,6 +3251,419 @@ def video_phase(report: dict, launches: dict, shared: dict) -> None:
                              "is missing")
 
 
+# the IMC phase: a synthetic IMC tree of IMC_FRAMES frames of
+# render_two_plane_scene, cropped to IMC_SIZE x IMC_HEIGHT (the principal
+# point moved with the crop) and written as JPEGs at quality 95, as IMC's
+# non-square photos are; three bag lists of 5, 10 and 25 frames spread
+# over the sequence. IMC_BASELINE a frame (0.72 over the sequence) keeps
+# the foreground square (1.4 x 1.4 at depth 2) whole in every view, up to
+# ~370 px from where the first frame sees it, and the background fills
+# each view; at 0.06 (1.44) the square leaves the end views in part and
+# moves up to ~740 px
+IMC_FRAMES, IMC_SIZE, IMC_HEIGHT, IMC_BASELINE = 25, 1024, 768, 0.03
+IMC_LOCATION = "two_plane_synthetic"
+IMC_BAGS = (5, 10, 25)
+
+
+def write_imc_tree(root: str) -> dict:
+    """The synthetic IMC tree under `root`: <location>/set_100/images/*.jpg,
+    calibration/calibration_<stem>.npz (K, R, T of the planted cameras)
+    and sub_set/<n>bag_000.txt. Returns the scene."""
+    import numpy as np
+    from PIL import Image
+
+    from vggsfm_tpu_torch.utils.synth import render_two_plane_scene
+
+    scene = render_two_plane_scene(IMC_FRAMES, IMC_SIZE,
+                                   baseline=IMC_BASELINE)
+    top = (IMC_SIZE - IMC_HEIGHT) // 2
+    base = os.path.join(root, IMC_LOCATION, "set_100")
+    for d in ("images", "calibration", "sub_set"):
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+    for s in range(IMC_FRAMES):
+        stem = f"img_{s:04d}"
+        img = (scene["images"][s, top:top + IMC_HEIGHT] * 255).astype(
+            np.uint8)
+        Image.fromarray(img).save(os.path.join(base, "images", stem + ".jpg"),
+                                  quality=95)
+        K = scene["intrinsics"][s].astype(np.float64)
+        K[1, 2] -= top
+        E = scene["extrinsics"][s].astype(np.float64)
+        np.savez(os.path.join(base, "calibration",
+                              f"calibration_{stem}.npz"),
+                 K=K, R=E[:, :3], T=E[:, 3])
+    for n in IMC_BAGS:
+        frames = np.linspace(0, IMC_FRAMES - 1, n).round().astype(int)
+        with open(os.path.join(base, "sub_set", f"{n}bag_000.txt"), "w") as f:
+            f.write("\n".join(f"images/img_{s:04d}.jpg" for s in frames))
+    return scene
+
+
+def check_packed_model(model, extrinsics, names, keypoints=None,
+                       host=None) -> int:
+    """A packed scene's COLMAP model against what the run gave: every frame
+    under its name with tvec the predicted translation and qvec its
+    rotation (1e-6 beyond its f32 distance from orthonormal); each
+    observation the keypoint of its track (keypoint index == track index)
+    and, with the run's arrays (`host`), its tracked pixel and the point
+    its solved xyz. Returns the number of points."""
+    import numpy as np
+
+    from vggsfm_tpu_torch.io.bridge import _quat_to_matrix
+
+    by_name = {im.name: im for im in model.images.values()}
+    assert sorted(by_name) == sorted(names), sorted(by_name)
+    for s, name in enumerate(names):
+        im, e = by_name[name], extrinsics[s].astype(np.float64)
+        assert np.array_equal(im.tvec, e[:, 3]), name
+        R = e[:, :3]
+        orth = np.abs(R @ R.T - np.eye(3)).max()
+        assert np.abs(_quat_to_matrix(im.qvec) - R).max() <= orth + 1e-6
+        stem = os.path.splitext(name)[0]
+        if keypoints is not None:
+            assert np.array_equal(
+                im.xys, keypoints[stem][im.point3D_ids].astype(np.float64))
+        if host is not None:
+            assert np.array_equal(im.xys, host["pred_track"][0][s][
+                im.point3D_ids].astype(np.float64))
+    if host is not None:
+        for pid, p3 in model.points3D.items():
+            assert np.array_equal(p3.xyz,
+                                  host["points3d"][pid].astype(np.float64))
+    return len(model.points3D)
+
+
+def imc_cli_run(report: dict, tree: str) -> dict:
+    """`python3 -m vggsfm_tpu_torch.imc_eval` at its defaults on the tree
+    in a child process, with the submission and the packed scenes; gates:
+    AUC@30 >= 0.85 and >= 100 valid tracks per bag, the files read back
+    with the model of each packed scene equal to the poses and keypoints
+    the CLI wrote. Returns the JSON table."""
+    from vggsfm_tpu_torch.datasets.imc import load_h5
+    from vggsfm_tpu_torch.datasets.imc_submission import (
+        load_scene_submission,
+    )
+
+    out = os.path.join(OUT_DIR, "imc")
+    sub, pack = os.path.join(out, "submission"), os.path.join(out, "pack")
+    cmd = [sys.executable, "-m", "vggsfm_tpu_torch.imc_eval", "--imc-dir",
+           tree, "--calib-ext", ".npz", "--submission-dir", sub,
+           "--pack-submission", pack, "--out",
+           os.path.join(out, "results.json")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                          capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+        raise AssertionError(f"the IMC CLI exited {proc.returncode}")
+    table = json.loads(proc.stdout[proc.stdout.index("{"):])
+    print(f"imc: python3 -m vggsfm_tpu_torch.imc_eval at its defaults "
+          f"(1024 px, 3 query frames, 4096 ALIKED points, fine tracking, "
+          f"seeded weights) on {len(table['bags'])} bags in a child "
+          f"process: {cli_s:.1f} s; mean AUC@30 "
+          f"{table['mean_auc30']:.4f}", flush=True)
+    for line in proc.stderr.strip().splitlines()[-len(table["bags"]):]:
+        print(f"  {line}")
+    ok = True
+    for name, row in table["bags"].items():
+        print(f"  {name}: wall {row['wall_s']} s, stages {row['stage_s']}, "
+              f"rotation / translation error median "
+              f"{row['rot_err_med_deg']:.3f} / "
+              f"{row['trans_err_med_deg']:.3f} deg", flush=True)
+        # .h5 where h5py is installed, else .npz
+        poses = load_h5(next(p for p in (
+            os.path.join(sub, f"{name}{ext}") for ext in (".h5", ".npz"))
+            if os.path.exists(p)))
+        back = load_scene_submission(pack, "imc", name, "vggsfm_tpu")
+        names = sorted(f"{k[len('pose_'):]}.jpg" for k in poses)
+        extr = [poses[f"pose_{os.path.splitext(n)[0]}"] for n in names]
+        n_pts = check_packed_model(back["model"], extr, names,
+                                   keypoints=back["keypoints"])
+        assert sorted(back["keypoints"]) == [n[:-4] for n in names]
+        assert back["matches"] and back["scores"]
+        ok &= row["auc30"] >= 0.85 and row["valid_tracks"] >= 100
+        print(f"  {name}: the packed scene read back ({n_pts} points, "
+              f"{len(back['matches'])} matched pairs) equals the poses and "
+              f"keypoints written", flush=True)
+    report["imc_cli"] = {"wall_s": cli_s, "table": table}
+    if not ok:
+        raise AssertionError("an IMC bag misses AUC@30 >= 0.85 or 100 "
+                             "valid tracks")
+    return table
+
+
+def imc_solvers_agreement(report: dict) -> None:
+    """The two-view solvers no stage calls, on the card and on the CPU on
+    the same draws (a CPU generator's), at the JAX package's defaults: on
+    4 pairs of 4096 correspondences (0.5 px noise, 20-30% outliers, focal
+    1024), `estimate_essential` (256 five-point sets, 4 px),
+    `estimate_homography` (1024 four-point sets, lo_num 50, 4 px) and
+    `absolute_pose_ransac(refine="epnp")` (256 six-point sets, lo_num 32,
+    17 focal trials, 8 px). Gates: H within 1e-4 and the poses within
+    5e-4 (0.5 px at focal 1024, against the 8 px threshold: EPnP sums over
+    4096 points in another order on each device), their inlier counts
+    equal up to the points whose masks differ; E (up to
+    sign) within 2e-3 where the winners' inlier counts agree, else the
+    counts within 0.1% of the points, and every E within 0.1 of the
+    planted one: each device builds its own basis of the five-point
+    nullspace (its four eigenvalues are rounding noise), so the
+    candidates agree only within their f32 conditioning and a winner at
+    the threshold may differ by a few inliers. No host sync on the card
+    in the solvers' code (the draws lie there already), but the PnP focal
+    factors' upload. Each timed on the card (CUDA events) and once on the
+    CPU, with the source lines of its host syncs on the card."""
+    import numpy as np
+    import torch
+
+    from vggsfm_tpu_torch.twoview import (
+        absolute_pose_ransac,
+        estimate_essential,
+        estimate_homography,
+    )
+    from vggsfm_tpu_torch.twoview.utils import generate_samples
+
+    rng = np.random.default_rng(11)
+    B, N, f, W = 4, 4096, 1024.0, 1024.0
+    K = np.array([[f, 0, W / 2], [0, f, W / 2], [0, 0, 1.0]])
+
+    def rot_y(a):
+        return np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                         [-np.sin(a), 0, np.cos(a)]])
+
+    def project(X, R, t):
+        uv = (K @ (X @ R.T + t).T).T
+        return uv[:, :2] / uv[:, 2:]
+
+    def noisy(x, frac):
+        x = x + rng.normal(scale=0.5, size=x.shape)
+        n_out = int(frac * len(x))
+        x[:n_out] = rng.uniform(0, W, size=(n_out, 2))
+        return x
+
+    ess, hom, pnp, E_gt = ([], []), ([], []), ([], [], []), []
+    for b in range(B):
+        R, t = rot_y(0.1 + 0.05 * b), np.array([0.5, 0.05 * b, 0.02])
+        X = rng.uniform([-2, -2, 4], [2, 2, 8], size=(N, 3))
+        x1 = project(X, np.eye(3), np.zeros(3)) + rng.normal(
+            scale=0.5, size=(N, 2))
+        x2 = noisy(project(X, R, t), 0.2)
+        ess[0].append((x1 - K[:2, 2]) / f)
+        ess[1].append((x2 - K[:2, 2]) / f)
+        tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+        E_gt.append(tx @ R / np.linalg.norm(tx @ R))
+        P = X.copy()
+        P[:, 2] = 6.0  # a plane
+        hom[0].append(project(P, np.eye(3), np.zeros(3)))
+        hom[1].append(noisy(project(P, R, t), 0.3))
+        pnp[0].append(X)
+        pnp[1].append(noisy(project(X, R, t), 0.25))
+        pnp[2].append(K)
+    g = torch.Generator().manual_seed(5)
+    draws = {k: generate_samples(g, N, n, k)[0]
+             for k, n in ((5, 256), (4, 1024), (6, 256))}
+
+    def run(dev):
+        # the inputs and the draws on the device once, before any call
+        e1, e2, h1, h2, X, x, Ks = (
+            torch.as_tensor(np.stack(a), dtype=torch.float32, device=dev)
+            for a in (*ess, *hom, *pnp))
+        d = {k: v.to(dev) for k, v in draws.items()}
+        return {
+            "essential": lambda: estimate_essential(
+                e1, e2, sample_idx=d[5], max_ransac_iters=256,
+                focal_length=f),
+            "homography": lambda: estimate_homography(h1, h2,
+                                                      sample_idx=d[4]),
+            "pnp_epnp": lambda: absolute_pose_ransac(
+                X, x, Ks, sample_idx=d[6], refine="epnp")}
+
+    def sync_sites(fn) -> dict:
+        """The source lines (file:line) of the host syncs of fn() on the
+        card, with their counts (CUDA sync debug mode)."""
+        import warnings
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        sites = {}
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                k = f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+                sites[k] = sites.get(k, 0) + 1
+        return sites
+
+    rows = {}
+    card, cpu = run("cuda"), run("cpu")
+    for name, card_fn in card.items():
+        t0 = time.perf_counter()
+        c = cpu[name]()
+        cpu_s = time.perf_counter() - t0
+        g_out = card_fn()
+        torch.cuda.synchronize()
+        ms = cuda_time_ms(card_fn, 3, warmup=1)
+        syncs = sync_sites(card_fn)
+        gn, cn = g_out["inlier_num"].cpu(), c["inlier_num"]
+        flips = int((g_out["inlier_mask"].cpu() != c["inlier_mask"]).sum())
+        if name == "essential":
+            def off(a, b):  # up to sign
+                return torch.minimum((a - b).abs().amax((-2, -1)),
+                                     (a + b).abs().amax((-2, -1)))
+
+            gE = g_out["emat"].cpu()
+            gt = torch.as_tensor(np.stack(E_gt), dtype=torch.float32)
+            d, same = off(gE, c["emat"]), gn == cn
+            ok = (bool((d[same] <= 2e-3).all())
+                  and bool(((gn - cn).abs() <= N // 1000).all())
+                  and bool((off(gE, gt) <= 0.1).all())
+                  and bool((off(c["emat"], gt) <= 0.1).all()))
+            diff = float(d.max())
+        elif name == "homography":
+            diff = float((g_out["hmat"].cpu() - c["hmat"]).abs().max())
+            ok = diff <= 1e-4
+        else:
+            diff = float((g_out["extrinsics"].cpu()
+                          - c["extrinsics"]).abs().max())
+            ok = diff <= 5e-4 and torch.equal(g_out["intrinsics"].cpu(),
+                                              c["intrinsics"])
+        ok &= int((gn - cn).abs().sum()) <= flips
+        # no sync in the solvers' code (a sync there names its line, the
+        # five-point bisection's determinants included); PnP uploads its
+        # focal factors in each call
+        ok &= not any(site.startswith(f"vggsfm_tpu_torch/twoview/{m}.py")
+                      for site in syncs for m in (
+                          "five_point", "homography", "epnp", "utils"))
+        ok &= sum(v for k, v in syncs.items() if k.startswith(
+            "vggsfm_tpu_torch/twoview/pnp.py")) <= 1
+        print(f"imc: {name} on the card vs the CPU, {B} x {N} "
+              f"correspondences, the same draws: max diff {diff:.2e}, "
+              f"inliers {gn.tolist()} vs {cn.tolist()} ({flips} differing "
+              f"mask entries); card {ms:.2f} ms a call, host syncs {syncs}; "
+              f"CPU {cpu_s:.3f} s {'ok' if ok else 'FAIL'}", flush=True)
+        rows[name] = {"card_ms": ms, "cpu_s": cpu_s, "host_syncs": syncs,
+                      "max_diff": diff, "inliers_card": gn.tolist(),
+                      "inliers_cpu": cn.tolist()}
+        if not ok:
+            raise AssertionError(f"{name}: the card and the CPU disagree")
+    report["imc_solvers"] = rows
+
+
+def imc_phase(report: dict, launches: dict) -> None:
+    """The IMC evaluation path: a synthetic IMC tree (`write_imc_tree`),
+    the CLI at its defaults in a child process (`imc_cli_run`); then in
+    this process, on a runner of the CLI's configuration, each bag once
+    more with the kernels' inputs recorded (`KernelShapes`; not timed),
+    its launch counts exact (`expected_launches` of the counted coarse,
+    fine and camera calls) and its packed scene equal to its predictions;
+    a device-only profile of the 25-frame bag; every kernel against its
+    plain version at each recorded shape (the time blocks and the camera
+    at L = 5, 10 and 25); and the two-view solvers card vs CPU
+    (`imc_solvers_agreement`). `launches` gets the bags' launch counts."""
+    import numpy as np
+    import torch
+
+    from vggsfm_tpu_torch import imc_eval
+    from vggsfm_tpu_torch.datasets.imc import IMCDataset, evaluate_bag
+    from vggsfm_tpu_torch.datasets.imc_submission import (
+        load_scene_submission,
+        pack_scene_submission,
+    )
+    from vggsfm_tpu_torch.ops import fused_mlp as fm
+    from vggsfm_tpu_torch.runner import VGGSfMRunner, to_host
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tree = os.path.join(OUT_DIR, "imc_tree")
+    t0 = time.perf_counter()
+    write_imc_tree(tree)
+    print(f"imc: the synthetic IMC tree, {IMC_FRAMES} frames of "
+          f"render_two_plane_scene at {IMC_SIZE} px (baseline "
+          f"{IMC_BASELINE} a frame) cropped to {IMC_SIZE} x {IMC_HEIGHT}, "
+          f"JPEG quality 95, bags of {IMC_BAGS} frames: "
+          f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
+    imc_cli_run(report, tree)
+
+    args = imc_eval.parse_args(["--imc-dir", tree, "--calib-ext", ".npz"])
+    runner = VGGSfMRunner(imc_eval.runner_config(args), device="cuda")
+    calls = {"coarse": 0, "fine": 0, "camera": 0}
+    coarse, fine = runner._coarse_track, runner._fine_track
+
+    def counted(fn, key):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    runner._coarse_track = counted(coarse, "coarse")
+    runner._fine_track = counted(fine, "fine")
+    runner.camera.register_forward_hook(
+        lambda *a: calls.__setitem__("camera", calls["camera"] + 1))
+    ds = IMCDataset(tree, img_size=args.img_size, calib_ext=".npz")
+    shapes = KernelShapes()
+    rows = {}
+    for name in ds.sequence_names():
+        data = ds.load_bag(name)
+        calls.update(coarse=0, fine=0, camera=0)
+        fm.reset_launch_counts()
+        with shapes:
+            out = runner.sparse_reconstruct(data["images"],
+                                            image_names=data["image_names"])
+        torch.cuda.synchronize()
+        got = dict(fm.launch_counts)
+        fm.reset_launch_counts()
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        want = expected_launches(calls["coarse"], calls["fine"],
+                                 calls["camera"])
+        host = to_host({k: out[k] for k in (
+            "extrinsics", "intrinsics", "extra_params", "points3d",
+            "valid_tracks", "valid_2d_mask", "pred_track", "pred_score",
+            "colors")})
+        auc = evaluate_bag(host["extrinsics"], data["gt_extrinsics"])["auc30"]
+        finite = all(bool(np.isfinite(host[k]).all()) for k in (
+            "extrinsics", "intrinsics", "points3d"))
+        pack = os.path.join(OUT_DIR, "imc", "pack_in_process")
+        pack_scene_submission(pack, "imc", name, "vggsfm_tpu",
+                              data["image_names"], host,
+                              image_size=(args.img_size, args.img_size))
+        n_pts = check_packed_model(
+            load_scene_submission(pack, "imc", name, "vggsfm_tpu")["model"],
+            host["extrinsics"], data["image_names"], host=host)
+        ok = got == want and finite
+        print(f"imc: {name} in this process, the kernels' inputs recorded: "
+              f"AUC@30 {auc:.4f}, valid tracks "
+              f"{int(host['valid_tracks'].sum())}, packed model equal to the "
+              f"predictions ({n_pts} points); calls: {calls['coarse']} "
+              f"coarse, {calls['fine']} fine, {calls['camera']} camera; "
+              f"launches {got} (expected {want}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        rows[name] = {"auc30": auc, "launches": got, "calls": dict(calls),
+                      "timings": dict(out["timings"])}
+        if not ok:
+            raise AssertionError(f"{name}: launch counts or values")
+    report["imc_in_process"] = rows
+
+    # where the device's time goes on the largest bag
+    big = ds.sequence_names()[[len(ds.sequences[n]) for n in
+                               ds.sequence_names()].index(max(IMC_BAGS))]
+    data = ds.load_bag(big)
+    report["imc_profile"] = profile_slice(
+        lambda: runner.sparse_reconstruct(data["images"]),
+        "imc_profile.txt", host=False)
+    del runner, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_kernel_shapes(shapes, report, "imc")
+    del shapes
+    imc_solvers_agreement(report)
+
+
 def main() -> int:
     try:
         import torch
@@ -3304,7 +3740,8 @@ def main() -> int:
     extra = {}
     # by main-path slice
     launches = {"tracker": {}, "camera": {}, "few_tracks": {},
-                "reconstruct": {}, "export": {}, "dense": {}, "video": {}}
+                "reconstruct": {}, "export": {}, "dense": {}, "video": {},
+                "imc": {}}
     shared = {}
     for phase, fn in (
             ("kernels", lambda: kernel_phase(report, extra)),
@@ -3326,7 +3763,8 @@ def main() -> int:
              lambda: dense_phase(extra, launches["dense"],
                                  launches["export"], shared)),
             ("video", lambda: video_phase(extra, launches["video"],
-                                          shared))):
+                                          shared)),
+            ("imc", lambda: imc_phase(extra, launches["imc"]))):
         t0 = time.perf_counter()
         try:
             fn()

@@ -4,7 +4,7 @@
   or the JAX package.
 * Entry points run on the GPU unless asked for the CPU: asking for
   "cuda" where there is none raises (the CLIs' --device too, the video
-  runner and its CLI included).
+  runner, its CLI and the IMC CLI included).
 * ops/_build.py imports without CUDA and builds for sm_90a.
 * chip_smoke.py fails without a GPU, and alone in a directory.
 * On a GPU (marked `cuda`, skipped elsewhere): the preliminary cameras on
@@ -66,7 +66,10 @@ def test_port_imports_no_jax():
             "models/convert.py", "utils/depth.py", "utils/visualizer.py",
             "io/ply.py", "ba/sparse_lm.py", "geometry/alignment.py",
             "parallel/merge.py", "video/__init__.py", "video/runner.py",
-            "video_demo.py"} <= rel
+            "video_demo.py", "datasets/camera_transform.py",
+            "datasets/imc.py", "datasets/imc_submission.py", "imc_eval.py",
+            "twoview/homography.py", "twoview/five_point.py",
+            "twoview/epnp.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imports(p)
            if m.split(".")[0] in BANNED]
     assert bad == []
@@ -159,6 +162,21 @@ def test_video_entry_points_raise_without_gpu_unless_asked_for_the_cpu(
         video_demo.main([str(tmp_path / "missing")])
     with pytest.raises(FileNotFoundError, match="no images"):
         video_demo.main([str(tmp_path), "--device", "cpu"])
+
+
+def test_imc_cli_raises_without_gpu_unless_asked_for_the_cpu(tmp_path):
+    """`python -m vggsfm_tpu_torch.imc_eval` runs on the GPU by default and
+    raises before it reads the IMC tree where there is none; with
+    `--device cpu` it goes on to the tree (here an empty folder: no bags,
+    exit code 1, as the JAX CLI)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from vggsfm_tpu_torch import imc_eval
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imc_eval.main(["--imc-dir", str(tmp_path / "missing")])
+    assert imc_eval.main(["--imc-dir", str(tmp_path), "--device",
+                          "cpu"]) == 1
 
 
 def test_build_module_imports_without_cuda_and_targets_sm90a():

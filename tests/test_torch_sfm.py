@@ -340,9 +340,16 @@ def test_absolute_pose_ransac_matches_jax(f_trials):
     assert same.mean() >= 0.99
     # the recovered poses are the planted ones
     assert float(_rot_err_deg(extr, out_t["extrinsics"]).max()) < 0.5
+    # the EPnP refinement (held to the JAX package in
+    # tests/test_torch_twoview_solvers.py) recovers them too; an unknown
+    # mode raises
+    out_e = tpnp.absolute_pose_ransac(
+        _t(pts), _t(tracks), _t(intr_in), valid_mask=_t(obs),
+        f_trials=f_trials, sample_idx=_t(idx).long(), refine="epnp")
+    assert float(_rot_err_deg(extr, out_e["extrinsics"]).max()) < 0.5
     with pytest.raises(ValueError):
         tpnp.absolute_pose_ransac(_t(pts), _t(tracks), _t(intr_in),
-                                  sample_idx=_t(idx).long(), refine="epnp")
+                                  sample_idx=_t(idx).long(), refine="lm")
 
 
 def test_refine_poses_matches_jax():

@@ -5,10 +5,12 @@ estimation with fixed budgets).
 
 The minimal solver is a 6-point DLT: the smallest eigenvector of the
 12x12 normal matrix (`ops/eigh.py`), its rotation factor projected to
-SO(3) by the 3x3 SVD (`ops/svd3.py`). Local refinement re-solves the same
-DLT over each candidate's inlier set, mask-weighted (`refine="dlt"`).
-The minimal sets come from the caller's `torch.Generator` or are given as
-`sample_idx`; the trial-chunked counting pass is a Python loop.
+SO(3) by the 3x3 SVD (`ops/svd3.py`). Local refinement solves each
+candidate's inlier set again, mask-weighted: by the same DLT
+(`refine="dlt"`) or by EPnP (`refine="epnp"`, `twoview/epnp.py`, the
+reference's refinement). The minimal sets come from the caller's
+`torch.Generator` or are given as `sample_idx`; the trial-chunked
+counting pass is a Python loop.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from vggsfm_tpu_torch.extractors.dog import top_k_stable
 from vggsfm_tpu_torch.ops.eigh import smallest_eigenvector
 from vggsfm_tpu_torch.ops.svd3 import svd3x3
+from vggsfm_tpu_torch.twoview.epnp import efficient_pnp
 from vggsfm_tpu_torch.twoview.utils import (
     BIG_RESIDUAL,
     generate_samples,
@@ -126,13 +129,13 @@ def absolute_pose_ransac(points3D: torch.Tensor, points2D: torch.Tensor,
     (B, P). The (max_ransac_iters, 6) minimal sets are drawn from
     `generator` or given as `sample_idx`. `refine` is the local
     refinement over each candidate's inlier set: 'dlt' (the mask-weighted
-    DLT re-solve); the JAX package's 'epnp' is not ported.
+    DLT re-solve) or 'epnp' (EPnP over the inliers, the reference's
+    two_view_geo/pnp.py:140 with perspective_n_points.py:321-437).
 
     Returns dict ``extrinsics (B, 3, 4)``, ``intrinsics (B, 3, 3)``,
     ``inlier_num (B,)``, ``inlier_mask (B, P)``."""
-    if refine != "dlt":
-        raise ValueError(f"PnP refine mode {refine!r} is not available in "
-                         f"the port (only 'dlt')")
+    if refine not in ("dlt", "epnp"):
+        raise ValueError(f"unknown PnP refine mode {refine!r}")
     B, P, _ = points3D.shape
     dev = points3D.device
     fl = torch.stack([intrinsics[:, 0, 0], intrinsics[:, 1, 1]], dim=-1)
@@ -182,9 +185,14 @@ def absolute_pose_ransac(points3D: torch.Tensor, points2D: torch.Tensor,
                           BIG_RESIDUAL)
     inl_sel = res_sel <= thres_bf[:, None, None]  # (BF, lo, P)
 
-    pose_lo = solve_pnp_dlt(p3f[:, None].expand(BF, lo_num, P, 3),
-                            p2f[:, None].expand(BF, lo_num, P, 2),
-                            inl_sel.to(p3f.dtype), point_chunk=2048)
+    p3_lo = p3f[:, None].expand(BF, lo_num, P, 3)
+    p2_lo = p2f[:, None].expand(BF, lo_num, P, 2)
+    if refine == "epnp":
+        pose_lo = efficient_pnp(p3_lo, p2_lo,
+                                weights=inl_sel.to(p3f.dtype))["extrinsics"]
+    else:
+        pose_lo = solve_pnp_dlt(p3_lo, p2_lo, inl_sel.to(p3f.dtype),
+                                point_chunk=2048)
     res_lo = _reproj_residuals(pose_lo, p3f[:, None], p2f[:, None])
     res_lo = torch.where(vf[:, None], res_lo, BIG_RESIDUAL)
     inl_lo = res_lo <= thres_bf[:, None, None]
