@@ -145,14 +145,15 @@ prints no result line):
    events, peak memory, shape, finite, >= 0), ViT-B f32 on the card
    against the CPU at 140 px with TF32 off (within 1e-3 of the largest
    disparity), and DepthAnythingV2-Large (`DepthAnything.vitl()`) once in
-   bf16; (g) `sparse_reconstruct` at the export phase's workload on its
-   runner with `dense_depth`, `visual_tracks`, `make_reproj_frames`,
-   `visual_query_points` and `profile_dir`: the dense_depth and visuals
-   stage times, each frame's depth inlier fraction, the depth maps read
-   back at the original resolution (finite, > 0), the visual files (the
-   mp4 where OpenCV has a codec), a trace naming every stage, the five
-   kernels' launch counts equal to the export run's, AUC@30 >= 0.85 and
-   within 0.01 of the export run's; (h) the CLI with --dense-depth
+   bf16; (g) `sparse_reconstruct` at the export phase's settings on its
+   runner, on the scene's first 4 frames, with `dense_depth`,
+   `visual_tracks`, `make_reproj_frames`, `visual_query_points` and
+   `profile_dir`: the dense_depth and visuals stage times, each frame's
+   depth inlier fraction, the depth maps read back at the original
+   resolution (finite, > 0), the visual files (the mp4 where OpenCV has a
+   codec), a trace naming every stage, the five kernels' launch counts
+   exactly those of the counted tracker and camera calls, AUC@30 >= 0.85;
+   (h) the CLI with --dense-depth
    --visual-tracks --reproj-frames --visual-query-points --profile-dir
    --load-gt in a child process: its wall time, AUC@30 >= 0.85, the
    depth maps, visuals and trace it writes;
@@ -181,10 +182,11 @@ prints no result line):
    CPU at
    a reduced size (f32, TF32 off); a device-only profile of the pipeline
    on the first 48 frames; `python3 -m vggsfm_tpu_torch.video_demo` on
-   those 48 frames as PNGs (--init-window 16 --window 8) in a child
+   the first 32 frames as PNGs (--init-window 16 --window 8) in a child
    process (every frame registered); and two such processes as the hosts
    of one multi-host run (--num-hosts 2, a shared exchange folder): their
-   initial maps equal, every frame registered.
+   initial maps equal, every frame registered. The last joint BA's inputs
+   are kept for phase 15.
 14. imc: a synthetic IMC tree in smoke_out/imc_tree (one location,
    set_100/{images,calibration,sub_set}: 25 frames of
    `render_two_plane_scene` at 1024 px, baseline 0.06 a frame, cropped to
@@ -206,6 +208,35 @@ prints no result line):
    `absolute_pose_ransac(refine="epnp")` on the card against the CPU on
    the same draws at the JAX package's defaults (4 pairs of 4096
    correspondences), each timed on the card with its host syncs.
+15. multi-device: (a) `sharded_track_and_reconstruct` (the sharded
+   pipeline step: Harris queries, the CNN on each rank's frames, the
+   coarse predictor on each rank's tracks with the virtual tracks'
+   attention combined over the ranks, the NHWC fine path with the
+   channel-first correlation pyramid and the NCC polish, the preliminary
+   cameras, triangulation and BA with the points sharded) at 8 frames x
+   1024 px, 4096 Harris points, bf16, seeded weights: on a one-rank NCCL
+   group in this process, then on two gloo ranks sharing cuda:0 in
+   spawned processes; each side warm, then timed. Gates: finite outputs,
+   >= 100 valid points, the final BA cost <= the initial, exact launch
+   counts per rank (one coarse and one fine call: 96 block, 72 `ln_mlp`,
+   6 + 6 correlation launches), the two ranks' tracks within 1e-2 px of
+   the one rank's on >= 99% of the tracks and the BA cost within 1e-3
+   relative, both ranks' outputs equal; every kernel against its plain
+   version at each shape the one-rank run and rank 0's block gave it
+   (the time blocks at R = (2048 + 64) x 8, the channel-first fine
+   correlation); each side's time and AUC@30 against the planted cameras
+   printed. (b) `distributed_bundle_adjust` on the two ranks on the card
+   against `bundle_adjust_sparse` on the card at the video run's last
+   joint BA: cost within 1e-3 relative, poses 1e-2, points 5e-2 (the
+   sparse BA's card-vs-CPU bounds), both times. (c) `python3 -m
+   vggsfm_tpu_torch.video_demo --distributed-ba 2 --dist-backend gloo` as
+   two ranks (VGGSFM_COORDINATOR / VGGSFM_NUM_PROCESSES /
+   VGGSFM_PROCESS_ID) on the 48-frame folder, each writing its own model:
+   every frame registered, the two models byte-equal. (d) the FLOP ledger
+   (`utils/mfu.py`) on one matched `sparse_reconstruct` with SYNC_TIMING:
+   each stage's FLOPs, synchronized seconds and MFU against the card's
+   dense bf16 peak; a small tracker and camera call counted on the card
+   (kernels, by formula) and on the CPU (plain versions): equal by op.
 
 Then one JSON line describing each kernel, the card line again, and as the
 last line {"ok": true, "device": {...}}. Needs a CUDA GPU and the repo
@@ -2582,18 +2613,22 @@ def depth_model_readings(runner, frame, report: dict) -> None:
         raise AssertionError("the DPT on the card disagrees with the CPU")
 
 
-def dense_phase(report: dict, launches: dict, export_launches: dict,
-                shared: dict) -> None:
+# the dense phase's profiled call: the first frames of the export scene
+DENSE_FRAMES = 4
+
+
+def dense_phase(report: dict, launches: dict, shared: dict) -> None:
     """(f) The depth model's readings (`depth_model_readings`); then (g)
-    `sparse_reconstruct` at the export phase's matched workload, on its
-    runner, with `dense_depth`, `visual_tracks`, `make_reproj_frames`,
-    `visual_query_points` and a `profile_dir`: the dense_depth and
-    visuals stage times; each frame's `depth_inlier_frac` (in (0, 1], the
-    median printed); OUT/depths/*.bin read back at each image's original
-    resolution, finite and > 0; the visual files; a trace that names the
-    stages; the five kernels' launch counts equal to the export phase's
-    run (the dense stage launches none of them); AUC@30 against the
-    planted cameras >= 0.85 and within 0.01 of the export phase's. Then
+    `sparse_reconstruct` at the export phase's settings, on its runner, on
+    the scene's first DENSE_FRAMES frames, with `dense_depth`,
+    `visual_tracks`, `make_reproj_frames`, `visual_query_points` and a
+    `profile_dir`: the dense_depth and visuals stage times; each frame's
+    `depth_inlier_frac` (in (0, 1], the median printed); OUT/depths/*.bin
+    read back at each image's original resolution, finite and > 0; the
+    visual files; a trace that names the stages; the five kernels' launch
+    counts exactly those of the counted tracker and camera calls (the
+    dense stage and the visuals launch none); AUC@30 against the planted
+    cameras >= 0.85. Then
     (h) the CLI with the new flags on the scene folder of the export
     phase's CLI run."""
     import dataclasses
@@ -2606,11 +2641,26 @@ def dense_phase(report: dict, launches: dict, export_launches: dict,
     from vggsfm_tpu_torch.utils.depth import read_colmap_array
 
     runner, scene = shared["runner"], shared["scene"]
-    names, crop = shared["names"], shared["crop"]
-    images = scene["images"]
+    # the profiled call on the first DENSE_FRAMES frames: every output of
+    # the flags at a fraction of the matched call's trace
+    names, crop = shared["names"][:DENSE_FRAMES], shared["crop"][:DENSE_FRAMES]
+    images = scene["images"][:DENSE_FRAMES]
     S, size = images.shape[:2]
     frame = torch.as_tensor(images[:1], device="cuda")[None]
     depth_model_readings(runner, frame, report)
+    calls = {"coarse": 0, "fine": 0, "camera": 0}
+    coarse, fine = runner._coarse_track, runner._fine_track
+
+    def counted(fn, key):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    runner._coarse_track = counted(coarse, "coarse")
+    runner._fine_track = counted(fine, "fine")
+    hook = runner.camera.register_forward_hook(
+        lambda *a: calls.__setitem__("camera", calls["camera"] + 1))
 
     out_dir = os.path.join(OUT_DIR, "dense")
     prof_dir = os.path.join(OUT_DIR, "dense_trace")
@@ -2626,12 +2676,16 @@ def dense_phase(report: dict, launches: dict, export_launches: dict,
     wall = time.perf_counter() - t0
     launches.update(fm.launch_counts)
     fm.reset_launch_counts()
+    hook.remove()
+    runner._coarse_track, runner._fine_track = coarse, fine
     runner.cfg = dataclasses.replace(
         runner.cfg, dense_depth=False, visual_tracks=False,
         make_reproj_frames=False, visual_query_points=False,
         profile_dir=None)
-    assert launches == export_launches, \
-        f"launches {launches}, the export phase's {export_launches}"
+    # the dense stage and the visuals launch none of the kernels
+    want = expected_launches(calls["coarse"], calls["fine"],
+                             calls["camera"])
+    assert launches == want, f"launches {launches}, expected {want}"
 
     tm = res["timings"]
     inl = res["depth_inlier_frac"].cpu().numpy()
@@ -2649,7 +2703,7 @@ def dense_phase(report: dict, launches: dict, export_launches: dict,
             | {f"reproj_{s:04d}.png" for s in range(S)} | {"tracks.gif"})
     assert want <= vis, f"missing visuals {sorted(want - vis)}"
     n_query = len([v for v in vis if v.startswith("query_points_")])
-    assert n_query >= runner.cfg.query_frame_num, n_query
+    assert n_query >= min(runner.cfg.query_frame_num, S), n_query
     mp4 = sorted(v for v in vis if v.endswith((".mp4", ".avi")))
     trace = runner.trace_path
     with open(trace, "rb") as f:
@@ -2659,11 +2713,12 @@ def dense_phase(report: dict, launches: dict, export_launches: dict,
               "export", "visuals")
     missing = [n for n in stages if f'"{n}"'.encode() not in data]
     assert not missing, f"the trace names no {missing}"
-    gt = torch.as_tensor(scene["extrinsics"], device="cuda")
+    gt = torch.as_tensor(scene["extrinsics"][:DENSE_FRAMES], device="cuda")
     auc = float(pose_auc30(res["extrinsics"], gt))
-    ok = auc >= 0.85 and abs(auc - shared["auc30"]) <= 0.01
-    print(f"dense (g): sparse_reconstruct at the export phase's workload "
-          f"with dense_depth, the visuals and profile_dir: {wall:.3f} s "
+    ok = auc >= 0.85
+    print(f"dense (g): sparse_reconstruct at the export phase's settings on "
+          f"its first {S} frames with dense_depth, the visuals and "
+          f"profile_dir: {wall:.3f} s "
           f"(profiled); stages dense_depth {tm['dense_depth']:.3f} s, "
           f"export {tm['export']:.3f} s (export.depths "
           f"{tm['export.depths']:.3f} s), visuals {tm['visuals']:.3f} s; "
@@ -2673,9 +2728,10 @@ def dense_phase(report: dict, launches: dict, export_launches: dict,
           f"({n_query} query-point overlays), mp4 "
           f"{mp4 if mp4 else 'not written (no OpenCV codec)'}; trace "
           f"{os.path.basename(trace)} of {len(data) / 2 ** 20:.1f} MiB names "
-          f"every stage; launches equal to the export phase's {launches}; "
-          f"AUC@30 {auc:.4f} (export phase {shared['auc30']:.4f}, >= 0.85, "
-          f"within 0.01) {'ok' if ok else 'FAIL'}", flush=True)
+          f"every stage; launches {launches} as the counted calls predict "
+          f"({calls}); AUC@30 {auc:.4f} (>= 0.85; the export phase's 8 "
+          f"frames {shared['auc30']:.4f}) {'ok' if ok else 'FAIL'}",
+          flush=True)
     report["dense"] = {
         "wall_s_profiled": wall, "stages_s": tm,
         "depth_inlier_frac": inl.tolist(),
@@ -3010,10 +3066,12 @@ def video_phase(report: dict, launches: dict, shared: dict) -> None:
     (recorded there so that the timed run's wall and peak carry no
     recording); `bundle_adjust_sparse` card vs CPU; a device-only
     profile of the pipeline on the first 48 frames; and, at once on the
-    card, the CLI in a child process on a 48-frame folder (--init-window
-    16 --window 8) and two host processes of the CLI's multi-host run on
-    that folder with a shared exchange directory: every frame registered,
-    the hosts' initial maps equal."""
+    card, the CLI in a child process on a 32-frame folder (--init-window
+    16 --window 8: the initial window and one window a host) and two host
+    processes of the CLI's multi-host run on that folder with a shared
+    exchange directory: every frame registered, the hosts' initial maps
+    equal. `shared["joint_ba"]` keeps the timed run's last joint BA inputs
+    for the multi-device phase."""
     import numpy as np
     import torch
 
@@ -3076,6 +3134,15 @@ def video_phase(report: dict, launches: dict, shared: dict) -> None:
         return out
 
     runner._track_window = counted_track
+    sparse_ba = runner._sparse_ba
+
+    def recorded_ba(n_dev, *a, **k):
+        # the last joint BA's inputs, replayed by the multi-device phase
+        # (references only: no copy or sync inside the timed run)
+        shared["joint_ba"] = {"args": a, "kw": k}
+        return sparse_ba(n_dev, *a, **k)
+
+    runner._sparse_ba = recorded_ba
     out_dir = os.path.join(OUT_DIR, "video")
     names = [f"frame_{t:05d}.png" for t in range(T)]
     torch.cuda.synchronize()
@@ -3088,6 +3155,12 @@ def video_phase(report: dict, launches: dict, shared: dict) -> None:
     launches.update(fm.launch_counts)
     fm.reset_launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    runner._sparse_ba = sparse_ba
+    shared["joint_ba"] = {
+        "args": [t.cpu() if torch.is_tensor(t) else t
+                 for t in shared["joint_ba"]["args"]],
+        "kw": {k: v.cpu() if torch.is_tensor(v) else v
+               for k, v in shared["joint_ba"]["kw"].items()}}
 
     gt = torch.as_tensor(scene["extrinsics"])
     auc = float(pose_auc30(torch.as_tensor(preds["extrinsics"]), gt))
@@ -3187,10 +3260,13 @@ def video_phase(report: dict, launches: dict, shared: dict) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the CLI on a 48-frame folder, alone and as two hosts, the three
-    # processes at once on the card
-    scene_dir = os.path.join(OUT_DIR, "video_frames")
-    write_scene_folder({k: v[:48] for k, v in scene.items()}, scene_dir)
+    # the CLI on a 32-frame folder (the initial window and one window per
+    # host), alone and as two hosts, the three processes at once on the
+    # card; the 48-frame folder serves the multi-device phase's CLI ranks
+    write_scene_folder({k: v[:48] for k, v in scene.items()},
+                       os.path.join(OUT_DIR, "video_frames"))
+    scene_dir = os.path.join(OUT_DIR, "video_frames32")
+    write_scene_folder({k: v[:32] for k, v in scene.items()}, scene_dir)
     env = dict(os.environ, PYTHONPATH=HERE)
     base = [sys.executable, "-m", "vggsfm_tpu_torch.video_demo", scene_dir,
             "--init-window", "16", "--window", "8"]
@@ -3224,11 +3300,11 @@ def video_phase(report: dict, launches: dict, shared: dict) -> None:
     summary = json.loads(outs[0][0].strip().splitlines()[-1])
     summary0 = json.loads(outs[2][0].strip().splitlines()[-1])
     cli_s, hosts_s = walls[0], max(walls)
-    print(f"video: python3 -m vggsfm_tpu_torch.video_demo on 48 PNGs, "
+    print(f"video: python3 -m vggsfm_tpu_torch.video_demo on 32 PNGs, "
           f"--init-window 16 --window 8, in a child process: {cli_s:.1f} s "
           f"(beside the two hosts below on the same card); {summary}",
           flush=True)
-    assert summary["registered"] == 48, summary
+    assert summary["registered"] == 32, summary
     p0 = np.load(os.path.join(ex, "partial_000.npz"))
     p1 = np.load(os.path.join(ex, "partial_001.npz"))
     P0 = int(p0["shared_points"])
@@ -3236,7 +3312,7 @@ def video_phase(report: dict, launches: dict, shared: dict) -> None:
         np.array_equal(p0[k][m], p1[k][m]) for k, m in (
             ("xyz", slice(0, P0)), ("extrinsics", slice(0, 16)),
             ("intrinsics", slice(0, 16)), ("extra", slice(0, 16)))))
-    ok = same and summary0["registered"] == 48
+    ok = same and summary0["registered"] == 32
     print(f"video: two host processes (--num-hosts 2) on one card, shared "
           f"exchange folder: {hosts_s:.1f} s for the three processes; "
           f"blocks {p0['block'].tolist()} and {p1['block'].tolist()}, "
@@ -3664,6 +3740,403 @@ def imc_phase(report: dict, launches: dict) -> None:
     imc_solvers_agreement(report)
 
 
+# ------------------------------------------------------------ phase 15
+
+# the sharded step's full-width cell: render_two_plane_scene at the matched
+# workload's frames and size, MULTI_POINTS Harris query points, bf16
+MULTI_FRAMES, MULTI_SIZE, MULTI_POINTS = 8, 1024, 4096
+# tracks of the two-rank step within 1e-2 px of the one-rank step's in
+# every frame: seeded weights leave the coarse tracks at the matching init
+# (zero flow heads), whose argmax steps may flip on a near-tie where the
+# block of half the tracks rounds its products otherwise
+MULTI_TRACK_SHARE = 0.99
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _seeded_tracker():
+    import torch
+
+    from vggsfm_tpu_torch.models.tracker import (
+        TrackerPredictor,
+        init_tracker_,
+    )
+
+    tracker = TrackerPredictor(dtype=torch.bfloat16)
+    init_tracker_(tracker, torch.Generator().manual_seed(0))
+    return tracker.to("cuda").eval()
+
+
+def _step_run(mesh, images, record: bool) -> dict:
+    """The sharded step on `mesh`: a first call (with the kernels' inputs
+    recorded when `record`), then a timed call with the launch counts read
+    around it. Host copies of its outputs, the valid points, the BA costs,
+    the wall and the launches."""
+    import torch
+
+    from vggsfm_tpu_torch.ops import fused_mlp as fm
+    from vggsfm_tpu_torch.parallel.sharded import (
+        sharded_track_and_reconstruct,
+    )
+
+    step = sharded_track_and_reconstruct(_seeded_tracker(), mesh)
+    shapes = KernelShapes() if record else contextlib.nullcontext()
+    with shapes:
+        step(images, max_query_pts=MULTI_POINTS)
+    torch.cuda.synchronize()
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = step(images, max_query_pts=MULTI_POINTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fm.launch_counts)
+    fm.reset_launch_counts()
+    return {"out": [t.detach().cpu() for t in out],
+            "valid": step.valid_points.cpu(),
+            "initial_cost": float(step.ba_info["initial_cost"]),
+            "wall_s": wall, "launches": launches,
+            "shapes": shapes if record else None}
+
+
+def _multi_rank(rank: int, world: int, init: str, folder: str) -> None:
+    """One of the two gloo ranks sharing cuda:0: (a) the sharded step,
+    its kernels held against their plain versions at the shapes rank 0's
+    block gave them; (b) `distributed_bundle_adjust` on the recorded joint
+    BA. Results to folder/rank{r}.pt."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            world_size=world, rank=rank)
+    try:
+        from vggsfm_tpu_torch.ops import _build
+        from vggsfm_tpu_torch.parallel.mesh import make_mesh
+        from vggsfm_tpu_torch.parallel.multihost import (
+            distributed_bundle_adjust,
+        )
+
+        _build.load_library()
+        mesh = make_mesh()
+        images = torch.from_numpy(np.load(os.path.join(folder,
+                                                       "images.npy")))
+        res = _step_run(mesh, images[None], record=rank == 0)
+        rows = {}
+        if rank == 0:
+            check_kernel_shapes(res.pop("shapes"), rows, path="multi")
+        res.pop("shapes", None)
+        res["kernel_rows"] = rows.get("multi_kernel_shapes", [])
+        ba = torch.load(os.path.join(folder, "joint_ba.pt"),
+                        weights_only=False)
+        dist.barrier()
+        t0 = time.perf_counter()
+        e, i, x, X, cost = distributed_bundle_adjust(
+            mesh, *ba["args"], **ba["kw"])
+        torch.cuda.synchronize()
+        res["dist_ba"] = {"out": [None if t is None else t.cpu()
+                                  for t in (e, i, x, X, cost)],
+                          "wall_s": time.perf_counter() - t0}
+        torch.save(res, os.path.join(folder, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_device_phase(report: dict, launches: dict, shared: dict) -> None:
+    """(a) The sharded step (`sharded_track_and_reconstruct`) at full width
+    on a one-rank NCCL group, then on two gloo ranks sharing cuda:0, with
+    the gates; (b) `distributed_bundle_adjust` on the two ranks against
+    the plain solver on the card at the video run's joint-BA size; (c) the
+    video CLI as two ranks with --distributed-ba 2; (d) the FLOP ledger
+    (`multi_device_ledger`)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from vggsfm_tpu_torch.ba import bundle_adjust_sparse
+    from vggsfm_tpu_torch.geometry.metrics import pose_auc30
+    from vggsfm_tpu_torch.parallel.mesh import make_mesh
+    from vggsfm_tpu_torch.utils.synth import render_two_plane_scene
+
+    folder = os.path.join(OUT_DIR, "multi")
+    os.makedirs(folder, exist_ok=True)
+    scene = render_two_plane_scene(MULTI_FRAMES, MULTI_SIZE)
+    images = torch.from_numpy(scene["images"])
+    np.save(os.path.join(folder, "images.npy"), scene["images"])
+    gt = torch.as_tensor(scene["extrinsics"])
+    ba = shared.pop("joint_ba")
+    torch.save(ba, os.path.join(folder, "joint_ba.pt"))
+
+    # (a) world size 1 on NCCL
+    init = os.path.join(folder, "nccl_pg")
+    if os.path.exists(init):
+        os.remove(init)
+    dist.init_process_group("nccl", init_method=f"file://{init}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        one = _step_run(mesh, images[None].cuda(), record=True)
+    finally:
+        dist.destroy_process_group()
+    check_kernel_shapes(one.pop("shapes"), report, path="multi1")
+
+    # (a) and (b) on two gloo ranks on the card
+    init = os.path.join(folder, "gloo_pg")
+    for f in [init] + [os.path.join(folder, f"rank{r}.pt") for r in (0, 1)]:
+        if os.path.exists(f):
+            os.remove(f)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_multi_rank, args=(2, init, folder), nprocs=2,
+                             join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=max(1.0, 300 - (time.perf_counter()
+                                                   - t0))):
+            if time.perf_counter() - t0 > 300:
+                raise TimeoutError("the two ranks did not end in 300 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks_s = time.perf_counter() - t0
+    two = [torch.load(os.path.join(folder, f"rank{r}.pt"),
+                      weights_only=False) for r in (0, 1)]
+    report.setdefault("multi_kernel_shapes", []).extend(
+        two[0].pop("kernel_rows"))
+    two[1].pop("kernel_rows")
+
+    tracks1, vis1, pts1, extr1, cost1 = one["out"]
+    v1 = one["valid"]
+    want = expected_launches(1, 1, 0)
+    rows = []
+    ok = True
+    for label, r in [("1 rank (NCCL)", one)] + [
+            (f"2 ranks (gloo), rank {k}", two[k]) for k in (0, 1)]:
+        tracks, vis, pts, extr, cost = r["out"]
+        valid = r["valid"]
+        finite = all(bool(torch.isfinite(t).all()) for t in (
+            tracks, vis, extr, cost)) and bool(torch.isfinite(pts[valid])
+                                               .all())
+        med, mx, share = track_agreement(tracks.float(), tracks1.float())
+        cost_rel = abs(float(cost) - float(cost1)) / float(cost1)
+        auc = float(pose_auc30(extr, gt))
+        good = (finite and int(valid.sum()) >= 100
+                and float(cost) <= r["initial_cost"]
+                and r["launches"] == want and share >= MULTI_TRACK_SHARE
+                and cost_rel <= 1e-3)
+        ok &= good
+        print(f"multi-device (a): the sharded step, {MULTI_FRAMES} x "
+              f"{MULTI_SIZE} px, {MULTI_POINTS} Harris points, fine, bf16, "
+              f"{label}: {r['wall_s']:.3f} s; valid points "
+              f"{int(valid.sum())} (>= 100); BA cost {r['initial_cost']:.2f}"
+              f" -> {float(cost):.4f} (<= initial; {cost_rel:.2e} from one "
+              f"rank, <= 1e-3); tracks against one rank: median {med:.2e} "
+              f"px, max {mx:.2e} px, share within 1e-2 px {share:.4f} (>= "
+              f"{MULTI_TRACK_SHARE}); AUC@30 against the planted cameras "
+              f"{auc:.4f} (not gated); launches {r['launches']} (expected "
+              f"{want}) {'ok' if good else 'FAIL'}", flush=True)
+        rows.append({"side": label, "wall_s": r["wall_s"],
+                     "valid": int(valid.sum()),
+                     "initial_cost": r["initial_cost"],
+                     "final_cost": float(cost), "cost_rel": cost_rel,
+                     "track_share": share, "track_max_px": mx, "auc30": auc,
+                     "launches": r["launches"]})
+    same = all(torch.equal(a, b) for a, b in zip(two[0]["out"],
+                                                 two[1]["out"]))
+    ok &= same
+    print(f"multi-device (a): the two ranks' outputs equal: {same}; both "
+          f"ranks' process start, build load, two steps and (b) "
+          f"{ranks_s:.1f} s", flush=True)
+    for k, v in one["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    report["multi_step"] = {"rows": rows, "ranks_equal": same,
+                            "ranks_wall_s": ranks_s}
+
+    # (b) the joint BA on two ranks against the plain solver on the card
+    args = [a.cuda() if torch.is_tensor(a) else a for a in ba["args"]]
+    kw = {k: (v.cuda() if torch.is_tensor(v) else v)
+          for k, v in ba["kw"].items()}
+    bundle_adjust_sparse(*args, **kw)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e, i, x, X, info = bundle_adjust_sparse(*args, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    cost = float(info["final_cost"])
+    S, P, O = args[0].shape[0], args[2].shape[0], args[3].shape[0]
+    for k, r in enumerate(two):
+        de, di, dx, dX, dcost = r["dist_ba"]["out"]
+        rel = abs(float(dcost) - cost) / cost
+        e_err = float((de - e.cpu()).abs().max())
+        X_err = float((dX - X.cpu()).abs().max())
+        good = rel <= 1e-3 and e_err <= 1e-2 and X_err <= 5e-2
+        ok &= good
+        print(f"multi-device (b): distributed_bundle_adjust on 2 gloo "
+              f"ranks on the card (rank {k}), the video run's last joint "
+              f"BA ({S} frames, {P} points, {O} observations): "
+              f"{r['dist_ba']['wall_s']:.3f} s, plain solver on the card "
+              f"{plain_s:.3f} s; cost {float(info['initial_cost']):.4f} -> "
+              f"{float(dcost):.4f} against {cost:.4f} ({rel:.2e}, <= "
+              f"1e-3), poses {e_err:.2e} (<= "
+              f"1e-2), points {X_err:.2e} (<= 5e-2) "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+    report["multi_dist_ba"] = {
+        "frames": S, "points": P, "observations": O, "plain_s": plain_s,
+        "dist_s": [r["dist_ba"]["wall_s"] for r in two], "cost": cost}
+    if not ok:
+        raise AssertionError("the sharded step or the distributed BA "
+                             "misses its gates")
+    del two, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    video_distributed_cli(report)
+    multi_device_ledger(report)
+
+
+def video_distributed_cli(report: dict) -> None:
+    """(c) `python3 -m vggsfm_tpu_torch.video_demo --distributed-ba 2` as
+    two ranks of one gloo group on cuda:0 (VGGSFM_COORDINATOR,
+    VGGSFM_NUM_PROCESSES, VGGSFM_PROCESS_ID), each writing its own model,
+    over the video phase's 48-frame folder: every frame registered, the
+    two models equal."""
+    from vggsfm_tpu_torch.io.colmap import read_model
+
+    scene_dir = os.path.join(OUT_DIR, "video_frames")
+    port = _free_port()
+    outs = [os.path.join(OUT_DIR, f"video_dist_{r}") for r in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "vggsfm_tpu_torch.video_demo", scene_dir,
+         "--output", outs[r], "--distributed-ba", "2", "--dist-backend",
+         "gloo"], cwd=HERE, env=dict(
+             os.environ, PYTHONPATH=HERE,
+             VGGSFM_COORDINATOR=f"localhost:{port}",
+             VGGSFM_NUM_PROCESSES="2", VGGSFM_PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in (0, 1)]
+    res = []
+    try:
+        for p in procs:
+            res.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    for p, (o, e) in zip(procs, res):
+        if p.returncode != 0:
+            print(o[-3000:], e[-3000:])
+            raise AssertionError(f"a --distributed-ba rank exited "
+                                 f"{p.returncode}")
+    sums = [json.loads(o.strip().splitlines()[-1]) for o, _ in res]
+    files = ("cameras.bin", "images.bin", "points3D.bin")
+    same = all(open(os.path.join(outs[0], "sparse", f), "rb").read()
+               == open(os.path.join(outs[1], "sparse", f), "rb").read()
+               for f in files)
+    rec = read_model(os.path.join(outs[0], "sparse"))
+    ok = same and all(s["registered"] == s["frames"] == 48 for s in sums)
+    print(f"multi-device (c): python3 -m vggsfm_tpu_torch.video_demo "
+          f"--distributed-ba 2 as two gloo ranks on one card, 48 frames: "
+          f"{wall:.1f} s for both; the two models byte-equal: {same} "
+          f"({len(rec.images)} images, {len(rec.points3D)} points); "
+          f"summaries {sums} {'ok' if ok else 'FAIL'}", flush=True)
+    report["multi_video_cli"] = {"wall_s": wall, "summaries": sums,
+                                 "models_equal": same}
+    if not ok:
+        raise AssertionError("the --distributed-ba ranks' models differ or "
+                             "a frame is missing")
+
+
+def multi_device_ledger(report: dict) -> None:
+    """(d) The FLOP ledger (utils/mfu.py) on one matched `sparse_reconstruct`
+    with SYNC_TIMING: a warm call, a counted call (FLOPs of each stage's
+    first call at its shapes), a timed call; per stage its calls, FLOPs,
+    synchronized seconds and MFU against the card's dense bf16 peak. Then a
+    small tracker and camera call counted on the card (kernels) and on
+    the CPU (their plain versions): the counts equal."""
+    import copy
+
+    import torch
+
+    from vggsfm_tpu_torch.runner import VGGSfMRunner
+    from vggsfm_tpu_torch.utils import mfu
+    from vggsfm_tpu_torch.utils.synth import render_two_plane_scene
+
+    scene = render_two_plane_scene(8, 1024)
+    runner = VGGSfMRunner(matched_config(), device="cuda")
+    runner.sparse_reconstruct(scene["images"])  # warm
+    mfu.reset()
+    t0 = time.perf_counter()
+    with mfu.sync_timing():
+        runner.sparse_reconstruct(scene["images"])  # counted
+        count_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runner.sparse_reconstruct(scene["images"])  # timed
+        timed_s = time.perf_counter() - t0
+    rep = mfu.flops_report()
+    peak = mfu.peak_flops()
+    print(f"multi-device (d): the FLOP ledger on the matched "
+          f"sparse_reconstruct, SYNC_TIMING on: the counted call "
+          f"{count_s:.2f} s, the timed call {timed_s:.2f} s; peak "
+          f"{peak} FLOP/s (dense bf16, H100 SXM5 at 700 W; "
+          f"{torch.cuda.get_device_name(0)})", flush=True)
+    for name, row in sorted(rep.items()):
+        print(f"  {name:16s} calls {row['calls']:3d}  FLOPs/call "
+              f"{row['flops_per_call'] or 0:.4e}  timed "
+              f"{row.get('device_s', 0.0):.4f} s over "
+              f"{row.get('timed_calls', 0)} calls  MFU "
+              f"{row.get('mfu', float('nan')):.4f}", flush=True)
+    report["multi_ledger"] = {"stages": rep, "counted_s": count_s,
+                              "timed_s": timed_s}
+    assert rep and all(r["flops_per_call"] is not None
+                       for r in rep.values()), rep
+    mfu.reset()
+
+    # the same small calls on the card (kernels) and on the CPU (plain)
+    g = torch.Generator().manual_seed(5)
+    images = torch.rand(1, 2, 256, 256, 3, generator=g)
+    qp = torch.rand(1, 64, 2, generator=g) * 200 + 28
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        tr = copy.deepcopy(runner.tracker).to(dev)
+        cam = copy.deepcopy(runner.camera).to(dev)
+        im, q = images.to(dev), qp.to(dev)
+
+        def small():
+            with torch.inference_mode():
+                fmaps = tr.process_images_to_fmaps(im)
+                preds, _ = tr.coarse_predictor(q, fmaps, iters=2,
+                                               down_ratio=2)
+                cam(im, iters=1)
+                return preds
+
+        counts[dev] = mfu.count_flops(small)[1]
+        del tr, cam
+    equal = counts["cuda"] == counts["cpu"]
+    kernels = {k: v for k, v in counts["cuda"].items()
+               if k.startswith("kernel:")}
+    print(f"multi-device (d): a small tracker + camera call counted on the "
+          f"card (kernels) and on the CPU (plain versions): "
+          f"{sum(counts['cuda'].values()):.4e} and "
+          f"{sum(counts['cpu'].values()):.4e} FLOPs, equal by op: {equal}; "
+          f"the kernels' share {kernels} {'ok' if equal else 'FAIL'}",
+          flush=True)
+    report["multi_ledger"]["small_call"] = counts
+    if not equal:
+        diff = {k: (counts["cuda"].get(k), counts["cpu"].get(k))
+                for k in set(counts["cuda"]) | set(counts["cpu"])
+                if counts["cuda"].get(k) != counts["cpu"].get(k)}
+        raise AssertionError(f"the card's and the CPU's counts differ: "
+                             f"{diff}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3741,7 +4214,7 @@ def main() -> int:
     # by main-path slice
     launches = {"tracker": {}, "camera": {}, "few_tracks": {},
                 "reconstruct": {}, "export": {}, "dense": {}, "video": {},
-                "imc": {}}
+                "imc": {}, "multi": {}}
     shared = {}
     for phase, fn in (
             ("kernels", lambda: kernel_phase(report, extra)),
@@ -3760,11 +4233,12 @@ def main() -> int:
             ("export",
              lambda: export_phase(extra, launches["export"], shared)),
             ("dense and visuals",
-             lambda: dense_phase(extra, launches["dense"],
-                                 launches["export"], shared)),
+             lambda: dense_phase(extra, launches["dense"], shared)),
             ("video", lambda: video_phase(extra, launches["video"],
                                           shared)),
-            ("imc", lambda: imc_phase(extra, launches["imc"]))):
+            ("imc", lambda: imc_phase(extra, launches["imc"])),
+            ("multi-device",
+             lambda: multi_device_phase(extra, launches["multi"], shared))):
         t0 = time.perf_counter()
         try:
             fn()

@@ -69,7 +69,9 @@ def test_port_imports_no_jax():
             "video_demo.py", "datasets/camera_transform.py",
             "datasets/imc.py", "datasets/imc_submission.py", "imc_eval.py",
             "twoview/homography.py", "twoview/five_point.py",
-            "twoview/epnp.py"} <= rel
+            "twoview/epnp.py", "parallel/mesh.py", "parallel/sharded.py",
+            "parallel/multihost.py", "utils/mfu.py",
+            "parity_check.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imports(p)
            if m.split(".")[0] in BANNED]
     assert bad == []
@@ -85,6 +87,33 @@ def test_cuda_entry_points_raise_without_gpu():
     with pytest.raises(RuntimeError):
         VGGSfMRunner()  # device defaults to "cuda"
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_multi_device_entry_points_raise_without_gpu(tmp_path):
+    """The mesh (and so the sharded step over it) and the parity harness
+    run on the GPU unless asked for the CPU: where there is none, asking
+    for "cuda" raises before any work; the mesh never falls back to the
+    CPU or another backend."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from vggsfm_tpu_torch import parity_check
+    from vggsfm_tpu_torch.models import TrackerPredictor
+    from vggsfm_tpu_torch.parallel.mesh import make_mesh
+    from vggsfm_tpu_torch.parallel.sharded import (
+        sharded_track_and_reconstruct,
+    )
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sharded_track_and_reconstruct(TrackerPredictor(), make_mesh(1))
+    assert make_mesh(device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parity_check.main(["--checkpoint", str(tmp_path / "missing.pt"),
+                           "--device", "cuda"])
+    with pytest.raises(FileNotFoundError):
+        parity_check.main(["--checkpoint", str(tmp_path / "missing.pt"),
+                           "--device", "cpu"])
 
 
 def test_dense_entry_point_raises_without_gpu_unless_asked_for_the_cpu(

@@ -295,16 +295,17 @@ def test_step_back_retry_registers_every_frame():
 
 
 def test_distributed_ba_plain_below_its_device_count_raises_at_it():
-    """--distributed-ba N: with fewer than N devices the plain sparse
-    solver runs (the JAX rule); with N devices the port raises, naming
-    the roadmap item, where the JAX package would shard."""
+    """--distributed-ba N: with fewer than N devices (the process group's
+    ranks) the plain sparse solver runs (the JAX rule); with N the runner
+    takes the sharded solver, which raises here because no process group
+    of N ranks exists (tests/test_torch_parallel.py runs it on one)."""
     sc = cases.make_scene(T=5)
     runner = _port_runner(sc, distributed_ba_devices=2, init_window_size=5)
     reg, extr, intr, extra, registered, _ = runner._initial_map(sc["video"])
     runner._joint_ba(extr, intr, reg, registered)
     assert "video.joint_ba" in runner.timings
     runner._device_count = lambda: 2
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(ValueError, match="process group of at least 2"):
         runner._joint_ba(extr, intr, reg, registered)
 
 

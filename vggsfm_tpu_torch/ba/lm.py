@@ -42,6 +42,7 @@ from vggsfm_tpu_torch.geometry.distortion import (
     apply_distortion,
 )
 from vggsfm_tpu_torch.geometry.rotations import axis_angle_to_matrix
+from vggsfm_tpu_torch.utils import mfu
 from vggsfm_tpu_torch.utils.precision import f32_matmuls
 
 _EPS = 1e-12
@@ -216,11 +217,13 @@ def _tying_matrix(S: int, K: int, shared: bool) -> np.ndarray:
 
 @f32_matmuls
 def reprojection_cost(extrinsics, focal, pp, extra, points3d, tracks, mask,
-                      cfg: BAConfig = BAConfig()):
+                      cfg: BAConfig = BAConfig(), group=None):
     """Total (robust) squared reprojection error: tracks (S, N, 2), mask
     (S, N). A behind-camera observation costs `_BEHIND_PENALTY_SQ`, which
     also caps every observation's squared error: were it to cost nothing,
-    LM could flip a camera until every point is behind it."""
+    LM could flip a camera until every point is behind it. With `group`
+    (a mesh `Axis`) the points are this rank's block and the cost is the
+    sum over the group."""
     k = extra if extra is not None else focal.new_zeros(focal.shape[0], 0)
     pix, z, _ = _project(extrinsics[..., :3], extrinsics[..., 3], focal, pp,
                          k, points3d)
@@ -228,7 +231,8 @@ def reprojection_cost(extrinsics, focal, pp, extra, points3d, tracks, mask,
     sq = torch.clamp((r * r).sum(-1), max=_BEHIND_PENALTY_SQ)
     sq = torch.where(z > 0, sq, _BEHIND_PENALTY_SQ)
     w = _robust_sqrt_weight(sq, cfg) ** 2
-    return torch.where(mask > 0, sq * w, 0.0).sum()
+    cost = torch.where(mask > 0, sq * w, 0.0).sum()
+    return cost if group is None else group.all_reduce(cost)
 
 
 # ---------------------------------------------------------------------------
@@ -236,15 +240,22 @@ def reprojection_cost(extrinsics, focal, pp, extra, points3d, tracks, mask,
 # ---------------------------------------------------------------------------
 
 
+def bundle_adjust(*args, **kwargs):
+    """FLOP-ledger wrapper over the solver (utils/mfu.py), as in the JAX
+    package: every call is recorded under ``ba_dense``. The arguments and
+    the result are `_bundle_adjust`'s."""
+    return mfu.timed_call("ba_dense", _bundle_adjust, args, kwargs)
+
+
 @f32_matmuls
-def bundle_adjust(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
+def _bundle_adjust(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
                   points3d: torch.Tensor, tracks: torch.Tensor,
                   mask: torch.Tensor,
                   extra_params: torch.Tensor | None = None,
                   pose_free: torch.Tensor | None = None,
                   intr_free: torch.Tensor | None = None,
                   point_free: torch.Tensor | None = None,
-                  cfg: BAConfig = BAConfig()):
+                  cfg: BAConfig = BAConfig(), group=None):
     """Joint refinement of cameras and points by damped Gauss-Newton.
 
     extrinsics (S, 3, 4) world-to-camera [R | t]; intrinsics (S, 3, 3)
@@ -253,6 +264,13 @@ def bundle_adjust(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
     optional (S, K) radial distortion, K in {1, 2, 4}; pose_free (S,)
     bool, False freezes a camera's pose (default: frame 0 frozen);
     intr_free (S,) freezes intrinsics; point_free (N,) freezes points.
+
+    With `group` (a mesh `Axis`), the points, tracks, mask and point_free
+    are this rank's block of the points: the camera blocks, the Schur
+    terms and the cost are summed over the group, the reduced camera
+    system is solved on every rank alike, and the point steps stay local.
+    Every rank leaves the loop at the same iteration (the flag is read
+    from the summed cost).
 
     Returns (extrinsics, intrinsics, extra_params, points3d, info) with
     ``info = {"cost": the cost after each iteration (max_iterations,),
@@ -329,6 +347,12 @@ def bundle_adjust(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
             b_c = b_c - torch.einsum("snca,na->sc", Y, b_p)
         # frozen slots: a unit diagonal keeps the system regular, the step
         # stays 0
+        if group is not None:
+            # the points' shares of the reduced camera system, summed over
+            # the ranks in one collective
+            Ab = group.all_reduce(torch.cat(
+                [A.reshape(-1), b_c.reshape(-1)]))
+            A, b_c = Ab[:-S * C], Ab[-S * C:]
         A = A.reshape(S * C, S * C) + frozen + eps_sc
         rhs = b_c.reshape(S * C)
         if T is not None:
@@ -352,7 +376,8 @@ def bundle_adjust(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
     def total_cost(params):
         R_, t_, f_, pp_, k_, X_ = params
         return reprojection_cost(torch.cat([R_, t_[..., None]], -1), f_,
-                                 pp_, k_ if K else None, X_, tracks, m, cfg)
+                                 pp_, k_ if K else None, X_, tracks, m, cfg,
+                                 group)
 
     params = (R, t, f, pp, k, X)
     cost0 = total_cost(params)

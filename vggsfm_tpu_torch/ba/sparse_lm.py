@@ -39,6 +39,7 @@ from vggsfm_tpu_torch.ba.lm import (
 )
 from vggsfm_tpu_torch.geometry.rotations import axis_angle_to_matrix
 from vggsfm_tpu_torch.ops.eigh import eigh_small
+from vggsfm_tpu_torch.utils import mfu
 from vggsfm_tpu_torch.utils.precision import f32_matmuls
 
 
@@ -59,8 +60,15 @@ def _segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     return x.new_zeros((n,) + x.shape[1:]).index_add_(0, idx, x)
 
 
+def bundle_adjust_sparse(*args, **kwargs):
+    """FLOP-ledger wrapper over the solver (utils/mfu.py), as in the JAX
+    package: every call is recorded under ``ba_sparse``. The arguments and
+    the result are `_bundle_adjust_sparse`'s."""
+    return mfu.timed_call("ba_sparse", _bundle_adjust_sparse, args, kwargs)
+
+
 @f32_matmuls
-def bundle_adjust_sparse(extrinsics: torch.Tensor,
+def _bundle_adjust_sparse(extrinsics: torch.Tensor,
                          intrinsics: torch.Tensor,
                          points3d: torch.Tensor,
                          obs_frame: torch.Tensor,
@@ -71,7 +79,8 @@ def bundle_adjust_sparse(extrinsics: torch.Tensor,
                          pose_free: torch.Tensor | None = None,
                          intr_free: torch.Tensor | None = None,
                          point_free: torch.Tensor | None = None,
-                         cfg: SparseBAConfig = SparseBAConfig()):
+                         cfg: SparseBAConfig = SparseBAConfig(),
+                         group=None):
     """LM bundle adjustment over flat observation lists.
 
     extrinsics (S, 3, 4), intrinsics (S, 3, 3), points3d (P, 3);
@@ -79,6 +88,12 @@ def bundle_adjust_sparse(extrinsics: torch.Tensor,
     obs_weight (O,), 0 disables an observation (padding); extra_params
     optional (S, K); pose_free / intr_free (S,), point_free (P,): False
     freezes (default: frame 0's pose frozen).
+
+    With `group` (a mesh `Axis`), the observation lists are this rank's
+    block (cameras and points replicated): every segment sum over frames
+    and over points, and the cost, is summed over the group (as the JAX
+    solver's `axis_name` psums), so the CG loop, whose inputs are then
+    all global, runs alike on every rank.
 
     Returns (extrinsics, intrinsics, extra_params, points3d, info) with
     ``info = {"cost": the cost after each iteration (max_iterations,),
@@ -147,10 +162,12 @@ def bundle_adjust_sparse(extrinsics: torch.Tensor,
         return torch.cat([x[:, :6], m.expand(S, C - 6)], dim=1)
 
     def seg_f(x):
-        return _segment_sum(x, of, S)
+        s = _segment_sum(x, of, S)
+        return s if group is None else group.all_reduce(s)
 
     def seg_p(x):
-        return _segment_sum(x, op, P)
+        s = _segment_sum(x, op, P)
+        return s if group is None else group.all_reduce(s)
 
     def project(params):
         """Each observation through its camera, one row per observation:
@@ -178,7 +195,8 @@ def bundle_adjust_sparse(extrinsics: torch.Tensor,
         sq = torch.where(
             z > 0, torch.clamp((r * r).sum(-1), max=_BEHIND_PENALTY_SQ),
             _BEHIND_PENALTY_SQ)
-        return (sq * _robust_sqrt_weight(sq, cfg) ** 2 * w_obs).sum()
+        c = (sq * _robust_sqrt_weight(sq, cfg) ** 2 * w_obs).sum()
+        return c if group is None else group.all_reduce(c)
 
     def step(params, lam):
         """The damped step by implicit-Schur PCG: camera steps (S, C) and

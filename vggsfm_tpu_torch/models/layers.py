@@ -42,6 +42,20 @@ def _ln_noaffine(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+def _softmax_over_group(scores, v, group):
+    """softmax(scores) @ v over a key axis split across `group`'s ranks:
+    scores (B, H, Lq, Lk_local) f32, v (B, Lk_local, H, D) -> (B, Lq, H, D)
+    f32, the same on every rank."""
+    m = group.all_reduce(scores.amax(-1, keepdim=True), "max")
+    e = torch.exp(scores - m)
+    num = torch.einsum("bhqk,bkhd->bqhd", e, v.float())
+    B, H, Lq, _ = e.shape
+    # one collective for both sums: Σexp rides as a last column of Σexp·v
+    both = torch.cat([num, e.sum(-1).permute(0, 2, 1)[..., None]], dim=-1)
+    both = group.all_reduce(both.contiguous(), "sum")
+    return both[..., :-1] / both[..., -1:]
+
+
 class TorchMultiheadAttention(nn.Module):
     """Multi-head attention in torch.nn.MultiheadAttention's parameter
     layout; inputs (B, L, C), batch first. Softmax in f32."""
@@ -62,7 +76,13 @@ class TorchMultiheadAttention(nn.Module):
             self.in_proj_weight, self.in_proj_bias, self.out_proj.weight,
             self.out_proj.bias))
 
-    def forward(self, q, k, v):
+    def forward(self, q, k, v, group=None):
+        """Attention of q (B, Lq, C) over k, v (B, Lk, C). With `group` (a
+        mesh `Axis`), k and v are this rank's block of a context split
+        over the group's ranks: the softmax over the whole context is
+        combined across them in f32 (all-reduce MAX of each query's top
+        score, then one all-reduce SUM of Σexp and Σexp·v), so every rank
+        gets the same output."""
         C, H = self.dim, self.num_heads
         D = C // H
         cdt = torch.promote_types(q.dtype, self.dtype)
@@ -80,6 +100,9 @@ class TorchMultiheadAttention(nn.Module):
         xk = xk.reshape(B, xk.shape[1], H, D)
         xv = xv.reshape(B, xv.shape[1], H, D)
         attn = torch.einsum("bqhd,bkhd->bhqk", xq, xk).float()
+        if group is not None:
+            out = _softmax_over_group(attn / D ** 0.5, xv, group)
+            return F.linear(out.to(cdt).reshape(B, Lq, C), wo, bo)
         attn = torch.softmax(attn / D ** 0.5, dim=-1).to(xv.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, xv).reshape(B, Lq, C)
         return F.linear(out, wo, bo)
@@ -169,7 +192,9 @@ class CrossAttnBlock(nn.Module):
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio),
                        hidden_size, dtype)
 
-    def forward(self, x, context):
+    def forward(self, x, context, group=None):
+        """x attends to `context`; with `group`, the context is this rank's
+        block of one split over the group (TorchMultiheadAttention)."""
         # LN in f32 of x as it comes, rounded once to the module dtype (as
         # flax's LayerNorm(dtype=...)): the camera's f32 tokens turn bf16
         x = _ln_noaffine(x).to(self.dtype)
@@ -177,7 +202,7 @@ class CrossAttnBlock(nn.Module):
                                self.norm_context.weight,
                                self.norm_context.bias,
                                1e-5).to(self.dtype)
-        x = x + self.cross_attn(x, context, context)
+        x = x + self.cross_attn(x, context, context, group=group)
         return self.mlp(x, ln_residual=True)
 
 

@@ -151,15 +151,17 @@ def refine_track(images, fine_fnet_apply, fine_tracker_apply, coarse_pred,
                  compute_score: bool = True, pradius: int = 15,
                  sradius: int = 2, fine_iters: int = 6,
                  matching_init: bool = False, subpixel_refine: bool = False,
-                 patch_dtype=None):
-    """Refine coarse tracks on local patches with the fine tracker, on the
-    flat channel-first feature path (the JAX package's ``flat_fnet=True``).
+                 patch_dtype=None, flat_fnet: bool = True):
+    """Refine coarse tracks on local patches with the fine tracker.
 
     images (B, S, H, W, 3) in [0, 1]; coarse_pred (B, S, N, 2).
-    fine_fnet_apply: (B', psize, psize, 3) -> (B', C, psize*psize).
+    fine_fnet_apply: (B', psize, psize, 3) -> (B', C, psize*psize) flat
+      channel-first with `flat_fnet` (the runner's path), else NHWC
+      (B', psize, psize, C) (the sharded step's path; the fine predictor
+      then takes the channel-first pyramid).
     fine_tracker_apply: (query_points, fmaps, iters, return_feat,
-      matching_init, fmaps_flat_hw) -> (coord_preds, vis, track_feats,
-      query_feats).
+      matching_init[, fmaps_flat_hw]) -> (coord_preds, vis, track_feats,
+      query_feats); `fmaps_flat_hw` is passed on the flat path only.
     Returns (refined_tracks (B, S, N, 2), score (B, S, N) or None).
     """
     B, S, N, _ = coarse_pred.shape
@@ -173,12 +175,25 @@ def refine_track(images, fine_fnet_apply, fine_tracker_apply, coarse_pred,
     patch_query = (track_frac[:, 0] + pradius).reshape(B * N, 1, 2)
 
     pf = fine_fnet_apply(patches.reshape(B * N * S, psize, psize, 3))
-    C_out = pf.shape[1]
-    patch_feat = pf.reshape(B, N, S, C_out, psize * psize)
-    patch_fmaps = pf.reshape(B * N, S, C_out, psize * psize)
-    coord_preds, _, _, query_feat = fine_tracker_apply(
-        patch_query, patch_fmaps, fine_iters, True, matching_init,
-        (psize, psize))
+    if flat_fnet:
+        C_out = pf.shape[1]
+        patch_feat = pf.reshape(B, N, S, C_out, psize * psize)
+        patch_fmaps = pf.reshape(B * N, S, C_out, psize * psize)
+        coord_preds, _, _, query_feat = fine_tracker_apply(
+            patch_query, patch_fmaps, fine_iters, True, matching_init,
+            (psize, psize))
+    else:
+        if pf.dim() != 4 or pf.shape[1:3] != (psize, psize):
+            raise ValueError(f"flat_fnet=False takes NHWC patch features "
+                             f"(B', {psize}, {psize}, C); got "
+                             f"{tuple(pf.shape)}")
+        C_out = pf.shape[-1]
+        # (B*N, S, psize, psize, C): each track its own "video", a free
+        # reshape in the (B, N, S) order
+        patch_feat = pf.reshape(B, N, S, psize, psize, C_out)
+        patch_fmaps = pf.reshape(B * N, S, psize, psize, C_out)
+        coord_preds, _, _, query_feat = fine_tracker_apply(
+            patch_query, patch_fmaps, fine_iters, True, matching_init)
 
     fine_patch_track = coord_preds[-1]  # (B*N, S, 1, 2) patch coords
     fine_level = fine_patch_track.reshape(B, N, S, 2).permute(0, 2, 1, 3)
@@ -196,15 +211,16 @@ def refine_track(images, fine_fnet_apply, fine_tracker_apply, coarse_pred,
         else:
             score = compute_score_fn(query_feat, patch_feat,
                                      fine_patch_track, sradius, psize,
-                                     B, N, S, C_out)
+                                     B, N, S, C_out, flat=flat_fnet)
     return refined, score
 
 
 def compute_score_fn(query_feat, patch_feat, fine_patch_track, sradius,
-                     psize, B, N, S, C_out):
+                     psize, B, N, S, C_out, flat: bool = True):
     """Confidence = spread (std) of the local similarity heatmap
     (reference refine_track.py:190-294, dsnt soft-argmax inlined).
-    patch_feat arrives flat channel-first (B, N, S, C, psize*psize)."""
+    patch_feat arrives flat channel-first (B, N, S, C, psize*psize) with
+    `flat`, else NHWC (B, N, S, psize, psize, C)."""
     ssize = 2 * sradius + 1
     dev = fine_patch_track.device
     centers = fine_patch_track.reshape(B, N, S, 2)
@@ -212,11 +228,18 @@ def compute_score_fn(query_feat, patch_feat, fine_patch_track, sradius,
     dy, dx = _window_grid(ssize, dev)
     ys = tl[..., 1, None, None] + dy
     xs = tl[..., 0, None, None] + dx
-    idx = (ys * psize + xs).reshape(B, N, S, 1, ssize * ssize)
-    windows = torch.gather(patch_feat, 4,
-                           idx.expand(-1, -1, -1, C_out, -1))
     qf = query_feat.reshape(B, N, C_out)
-    sim = torch.einsum("bnc,bnscr->bnsr", qf, windows[:, :, 1:])
+    if flat:
+        idx = (ys * psize + xs).reshape(B, N, S, 1, ssize * ssize)
+        windows = torch.gather(patch_feat, 4,
+                               idx.expand(-1, -1, -1, C_out, -1))
+        sim = torch.einsum("bnc,bnscr->bnsr", qf, windows[:, :, 1:])
+    else:
+        idx = (ys * psize + xs).reshape(B, N, S, ssize * ssize, 1)
+        windows = torch.gather(
+            patch_feat.reshape(B, N, S, psize * psize, C_out), 3,
+            idx.expand(-1, -1, -1, -1, C_out))
+        sim = torch.einsum("bnc,bnsrc->bnsr", qf, windows[:, :, 1:])
     heat = torch.softmax(sim.float() / C_out ** 0.5, dim=-1)
 
     lin = torch.linspace(-1.0, 1.0, ssize, device=dev)

@@ -40,23 +40,38 @@ from vggsfm_tpu_torch.ops.corr import corr_sample_kernel
 # ------------------------------------------------------------ pyramids
 
 def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 VALID average pool over the last two axes (odd edges dropped)."""
+    """2x2 VALID average pool over the last two axes (odd edges dropped),
+    the window summed in row-major order as XLA's reduce_window sums it."""
     H, W = x.shape[-2:]
-    x = x[..., : H // 2 * 2, : W // 2 * 2]
-    x = x.reshape(*x.shape[:-2], H // 2, 2, W // 2, 2)
-    return x.sum((-3, -1)) / 4.0
+    h, w = H // 2 * 2, W // 2 * 2
+    return (((x[..., 0:h:2, 0:w:2] + x[..., 0:h:2, 1:w:2])
+             + x[..., 1:h:2, 0:w:2]) + x[..., 1:h:2, 1:w:2]) / 4.0
 
 
-def build_corr_pyramid(fmaps: torch.Tensor, num_levels: int) -> list:
+def build_corr_pyramid(fmaps: torch.Tensor, num_levels: int,
+                       cfirst: bool = False) -> list:
     """(B, S, H, W, C) -> list of up to `num_levels` maps, 2x avg-pooled,
     each contiguous NHWC (the correlation kernel reads every level of a
     call in one layout).
 
+    With `cfirst` the levels are laid out (B, S, C, H, W): one transpose
+    at level 0, then channel-first pooling (the JAX package's layout for
+    the fine path's NHWC patch maps); the kernel reads them in place.
+
     Stops early once a map is smaller than 2x2 (reference blocks.py:
     355-361); the missing correlation features are zero-padded downstream.
     """
-    pyramid = [fmaps.contiguous()]
     x = fmaps.permute(0, 1, 4, 2, 3)  # (B, S, C, H, W)
+    if cfirst:
+        x = x.contiguous()
+        pyramid = [x]
+        for _ in range(num_levels - 1):
+            if x.shape[-2] < 2 or x.shape[-1] < 2:
+                break
+            x = _avg_pool2(x)
+            pyramid.append(x)
+        return pyramid
+    pyramid = [fmaps.contiguous()]
     for _ in range(num_levels - 1):
         if x.shape[-2] < 2 or x.shape[-1] < 2:
             break
@@ -85,10 +100,13 @@ def build_corr_pyramid_flat(x: torch.Tensor, hw: tuple, num_levels: int):
 # ---------------------------------------------------------- correlation
 
 def corr_sample(pyramid: list, coords: torch.Tensor,
-                track_feats: torch.Tensor, radius: int) -> torch.Tensor:
+                track_feats: torch.Tensor, radius: int,
+                cfirst: bool = False) -> torch.Tensor:
     """Correlation features (B, S, N, L*(2r+1)^2) of an NHWC pyramid.
 
-    pyramid: list of (B, S, Hi, Wi, C); coords (B, S, N, 2) at level-0
+    pyramid: list of (B, S, Hi, Wi, C), or with `cfirst` of
+    (B, S, C, Hi, Wi) (`build_corr_pyramid(cfirst=True)`), read in place
+    as (H, W, C) views with column stride 1; coords (B, S, N, 2) at level-0
     scale; track_feats (B, S, N, C). One launch of the correlation kernel
     for all levels, any N: the maps are read in their dtype, the features
     take it, and the result comes in the features' dtype. The JAX function
@@ -99,7 +117,11 @@ def corr_sample(pyramid: list, coords: torch.Tensor,
     """
     B, S, N, _ = coords.shape
     C = track_feats.shape[-1]
-    levels = [lvl.reshape(B * S, *lvl.shape[2:]) for lvl in pyramid]
+    if cfirst:
+        levels = [lvl.reshape(B * S, *lvl.shape[2:]).permute(0, 2, 3, 1)
+                  for lvl in pyramid]
+    else:
+        levels = [lvl.reshape(B * S, *lvl.shape[2:]) for lvl in pyramid]
     out = corr_sample_kernel(
         levels, coords.reshape(B * S, N, 2).float().contiguous(),
         track_feats.reshape(B * S, N, C).to(levels[0].dtype), radius,
@@ -263,7 +285,11 @@ class EfficientUpdateFormer(nn.Module):
             self.space_virtual2point_blocks = blocks(CrossAttnBlock,
                                                      space_depth)
 
-    def forward(self, x):
+    def forward(self, x, group=None):
+        """With `group` (a mesh `Axis`), x holds this rank's block of the
+        tracks: the virtual tracks' cross-attention over the point tokens
+        (their only coupling) combines the blocks across the group, and
+        the replicated virtual tokens come out the same on every rank."""
         B, N, T, _ = x.shape
         dt, Ch = self.dtype, self.hidden_size
         x = x.to(dt)
@@ -286,7 +312,8 @@ class EfficientUpdateFormer(nn.Module):
                 st = tokens.permute(0, 2, 1, 3).reshape(B * T, Ntot, Ch)
                 point_t = st[:, : Ntot - V]
                 virt_t = st[:, Ntot - V:]
-                virt_t = self.space_virtual2point_blocks[j](virt_t, point_t)
+                virt_t = self.space_virtual2point_blocks[j](virt_t, point_t,
+                                                            group=group)
                 virt_t = self.space_virtual_blocks[j](virt_t)
                 point_t = self.space_point2virtual_blocks[j](point_t, virt_t)
                 st = torch.cat([point_t, virt_t], dim=1)
@@ -336,14 +363,14 @@ class BaseTrackerPredictor(nn.Module):
         return F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt))
 
     def _iter_step(self, coords, track_feats, pyramid, sampled_pos, qp,
-                   flat_hws):
+                   flat_hws, corr_cfirst=False, group=None):
         B, S, N, _ = coords.shape
         if flat_hws is not None:
             fcorrs = corr_sample_flat(pyramid, flat_hws, coords, track_feats,
                                       self.corr_radius)
         else:
             fcorrs = corr_sample(pyramid, coords, track_feats,
-                                 self.corr_radius)
+                                 self.corr_radius, cfirst=corr_cfirst)
         flows_bn = (coords - coords[:, 0:1]).permute(0, 2, 1, 3)
         flows_emb = get_2d_embedding(flows_bn, self.latent_dim // 2,
                                      cat_coords=False)
@@ -355,7 +382,7 @@ class BaseTrackerPredictor(nn.Module):
             xx = F.pad(xx, (0, pad))
         xx = xx + sampled_pos[:, :, None, :]
 
-        delta = self.updateformer(xx)  # (B, N, S, latent + 2)
+        delta = self.updateformer(xx, group=group)  # (B, N, S, latent + 2)
         delta_coords = delta[..., :2].float().permute(0, 2, 1, 3)
         df = delta[..., 2:].reshape(-1, self.latent_dim)
         df = group_norm_1(df, self.norm.weight, self.norm.bias)
@@ -371,10 +398,11 @@ class BaseTrackerPredictor(nn.Module):
     def forward(self, query_points, fmaps, iters: int = 4,
                 down_ratio: int = 1, return_feat: bool = False,
                 matching_init: bool = False, matching_vis: bool = False,
-                fmaps_flat_hw: tuple | None = None):
+                fmaps_flat_hw: tuple | None = None, group=None):
         """query_points (B, N, 2) pixels; fmaps (B, S, HH, WW, C) — or,
         with ``fmaps_flat_hw=(HH, WW)``, flat channel-first
-        (B, S, C, HH*WW).
+        (B, S, C, HH*WW). With `group` (a mesh `Axis`), the query points
+        are this rank's block of the tracks (`EfficientUpdateFormer`).
 
         Returns (coord_predictions list, visibility (B, S, N) or None
         [, track_feats, query_feats]).
@@ -408,12 +436,17 @@ class BaseTrackerPredictor(nn.Module):
                 coords, _, match_cyc = global_match_coords(
                     fmaps, query_feats, qp, cycle=matching_vis)
 
+        # the JAX package's rule for the channel-first pyramid: the fine
+        # predictor's one track per NHWC patch map with few channels
+        corr_cfirst = (fmaps_flat_hw is None and self.fine and N == 1
+                       and HH * WW <= 4096 and C < 128)
         flat_hws = None
         if fmaps_flat_hw is not None:
             pyramid, flat_hws = build_corr_pyramid_flat(
                 fmaps, (HH, WW), self.corr_levels)
         else:
-            pyramid = build_corr_pyramid(fmaps, self.corr_levels)
+            pyramid = build_corr_pyramid(fmaps, self.corr_levels,
+                                         cfirst=corr_cfirst)
 
         # one sincos grid for every batch element, sampled with the
         # flattened (1, B*N, 2) query set
@@ -425,7 +458,8 @@ class BaseTrackerPredictor(nn.Module):
         coord_preds = []
         for _ in range(iters):
             coords, track_feats = self._iter_step(
-                coords, track_feats, pyramid, sampled_pos, qp, flat_hws)
+                coords, track_feats, pyramid, sampled_pos, qp, flat_hws,
+                corr_cfirst, group)
             coord_preds.append(coords * scale)
 
         vis = None
@@ -474,15 +508,16 @@ class TrackerPredictor(nn.Module):
         return fmaps.reshape(B, S, *fmaps.shape[1:])
 
     def forward(self, images, query_points, fmaps=None, coarse_iters=6,
-                matching_init=False, matching_vis=False):
-        """Coarse-only forward (fine refinement: models/refine.py).
+                matching_init=False, matching_vis=False, group=None):
+        """Coarse-only forward (fine refinement: models/refine.py); with
+        `group`, on this rank's block of the query points.
         Returns (coarse_pred_track (B, S, N, 2), pred_vis (B, S, N))."""
         if fmaps is None:
             fmaps = self.process_images_to_fmaps(images)
         coord_preds, vis = self.coarse_predictor(
             query_points, fmaps, iters=coarse_iters,
             down_ratio=self.coarse_down_ratio, matching_init=matching_init,
-            matching_vis=matching_vis)
+            matching_vis=matching_vis, group=group)
         return coord_preds[-1], vis
 
 

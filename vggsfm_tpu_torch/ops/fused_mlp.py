@@ -14,7 +14,9 @@ Counterparts of vggsfm_tpu/ops/fused_mlp.py (`fused_transformer_block`,
     once per kernel launch: one per `fused_transformer_block` call,
     WIDE_MLP_KERNELS per `fused_ln_mlp` call on the wide path (else one;
     the library's `vf_ln_mlp_kernels`), ATTN_KERNELS per `fused_ln_attn`
-    call.
+    call;
+  * a FLOP formula (``*_flops``) that the wrapper charges to the FLOP
+    ledger (utils/mfu.py) on either route, while a call is counted.
 
 Routes on the card: `fused_ln_mlp` in bf16 at 384 < C <= 768 (the camera's
 cross-attention tails) runs the wide path, three kernels meeting in bf16
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 
 # launch_counts, reset_launch_counts: also read through this module
 from vggsfm_tpu_torch.ops import _build, launch_counts, reset_launch_counts  # noqa: F401
+from vggsfm_tpu_torch.utils import mfu
 
 # mirrors the kernels' limits (csrc/fused_former.cuh check_*_shape)
 MAX_C = 384          # whole-block kernel (64-row register tile)
@@ -151,6 +154,27 @@ def fused_transformer_block_ref(x, w_in, b_in, w_out, b_out, w1, b1, w2,
     return _mlp_tail32(x1, w1, b1, w2, b2, x.dtype).to(x.dtype)
 
 
+# ----------------------------------------------------------------- FLOPs
+# Each kernel's FLOPs by one formula, charged to the FLOP ledger
+# (utils/mfu.py) by its wrapper on both routes: what FlopCounterMode counts
+# of the plain version, its matrix products (2 FLOPs a multiply-add).
+
+def ln_mlp_flops(R: int, C: int, M: int) -> int:
+    """fc1 (R x C x M) and fc2 (R x M x C)."""
+    return 4 * R * C * M
+
+
+def ln_attn_flops(R: int, C: int, L: int) -> int:
+    """q|k|v (R x C x 3C), scores and weighted sum (R x L x C each, in
+    groups of L rows), out-projection (R x C x C)."""
+    return 8 * R * C * C + 4 * R * L * C
+
+
+def block_flops(R: int, C: int, M: int, L: int) -> int:
+    """The attention half and the MLP tail."""
+    return ln_attn_flops(R, C, L) + ln_mlp_flops(R, C, M)
+
+
 # --------------------------------------------------------------- wrappers
 
 def _check(x, params, shapes):
@@ -180,10 +204,12 @@ def fused_ln_mlp(x, w1, b1, w2, b2):
     launch the kernel (the wide path's WIDE_MLP_KERNELS in bf16 above
     C = 384) or raise. Returns (R, C) in x's dtype.
     """
-    if x.device.type == "cpu":
-        return fused_ln_mlp_ref(x, w1, b1, w2, b2)
     R, C = x.shape
     M = w1.shape[0]
+    if mfu.counting():
+        mfu.add_kernel_flops("fused_ln_mlp", ln_mlp_flops(R, C, M))
+    if x.device.type == "cpu":
+        return mfu.plain(fused_ln_mlp_ref, x, w1, b1, w2, b2)
     _check(x, {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2},
            {"x": (R, C), "w1": (M, C), "b1": (M,), "w2": (C, M),
             "b2": (C,)})
@@ -220,11 +246,14 @@ def fused_transformer_block(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2,
     w1 (M, C), b1 (M,), w2 (C, M), b2 (C,). CPU tensors take
     `fused_transformer_block_ref`; CUDA tensors launch the kernel or raise.
     """
-    if x.device.type == "cpu":
-        return fused_transformer_block_ref(x, w_in, b_in, w_out, b_out, w1,
-                                           b1, w2, b2, seq_len, num_heads)
     R, C = x.shape
     M = w1.shape[0]
+    if mfu.counting():
+        mfu.add_kernel_flops("fused_transformer_block",
+                             block_flops(R, C, M, seq_len))
+    if x.device.type == "cpu":
+        return mfu.plain(fused_transformer_block_ref, x, w_in, b_in, w_out,
+                         b_out, w1, b1, w2, b2, seq_len, num_heads)
     _check(x, {"x": x, "w_in": w_in, "b_in": b_in, "w_out": w_out,
                "b_out": b_out, "w1": w1, "b1": b1, "w2": w2, "b2": b2},
            {"x": (R, C), "w_in": (3 * C, C), "b_in": (3 * C,),
@@ -264,10 +293,12 @@ def fused_ln_attn(x, w_in, b_in, w_out, b_out, seq_len: int, num_heads: int):
     core, out-projection; csrc/fused_former.cuh) or raise. Returns (R, C)
     in x's dtype.
     """
-    if x.device.type == "cpu":
-        return fused_ln_attn_ref(x, w_in, b_in, w_out, b_out, seq_len,
-                                 num_heads)
     R, C = x.shape
+    if mfu.counting():
+        mfu.add_kernel_flops("fused_ln_attn", ln_attn_flops(R, C, seq_len))
+    if x.device.type == "cpu":
+        return mfu.plain(fused_ln_attn_ref, x, w_in, b_in, w_out, b_out,
+                         seq_len, num_heads)
     _check(x, {"x": x, "w_in": w_in, "b_in": b_in, "w_out": w_out,
                "b_out": b_out},
            {"x": (R, C), "w_in": (3 * C, C), "b_in": (3 * C,),

@@ -131,10 +131,11 @@ def generate_ransac_pairs(S: int, max_ransac_iters: int,
 
 
 def _residual_indicator(errors: torch.Tensor, max_error: float,
-                        nanvalue: float):
+                        nanvalue: float, group=None):
     """Score candidates by inlier count, ties broken by the lower mean
     inlier residual: errors (N, K, S) -> (indicator (N, K), inlier count
-    (N, K), inlier mask (N, K, S))."""
+    (N, K), inlier mask (N, K, S)). The residual scale is the largest over
+    all tracks: with `group` (a mesh `Axis`) over every rank's block."""
     inlier_mask = errors <= max_error
     inlier_num = inlier_mask.sum(-1)
     mean_resid = (torch.where(inlier_mask, errors, 0.0).sum(-1)
@@ -142,7 +143,10 @@ def _residual_indicator(errors: torch.Tensor, max_error: float,
     mean_resid = torch.where(inlier_num == 0, nanvalue, mean_resid)
     mean_resid = torch.nan_to_num(mean_resid, nan=nanvalue, posinf=nanvalue,
                                   neginf=nanvalue)
-    thres = mean_resid.max() + 1e-6
+    top = mean_resid.max()
+    if group is not None:
+        top = group.all_reduce(top.clone(), "max")
+    thres = top + 1e-6
     indicator = (thres - mean_resid) / thres + inlier_num.to(errors.dtype)
     return indicator, inlier_num, inlier_mask
 
@@ -180,12 +184,13 @@ def triangulate_tracks_chunk(extrinsics: torch.Tensor,
                              track_score: torch.Tensor | None = None,
                              lo_num: int = 50,
                              max_angular_error: float = 2.0,
-                             min_tri_angle: float = 1.5):
+                             min_tri_angle: float = 1.5, group=None):
     """LORANSAC triangulation of one chunk of tracks: extrinsics
     (S, 3, 4), normalized tracks (N, S, 2), trial pairs (R, 2),
     visibility and score (N, S), where an observation with vis <= 0.05 or
     score <= 0.5 is penalized out -> (points (N, 3), inlier count (N,),
-    inlier mask (N, S))."""
+    inlier mask (N, S)). With `group` (a mesh `Axis`) the tracks are this
+    rank's block of the chunk."""
     N, S, _ = tracks_nt.shape
     R = ransac_pairs.shape[0]
     lo_num = min(lo_num, R)
@@ -223,7 +228,7 @@ def triangulate_tracks_chunk(extrinsics: torch.Tensor,
     all_points = torch.cat([tri_points, lo_points, lo_points2], dim=1)
     all_err = torch.cat([err, lo_err, lo_err2], dim=1)
     indicator, inlier_num, inlier_mask = _residual_indicator(
-        all_err, max_rad_error, nanvalue=2 * math.pi)
+        all_err, max_rad_error, nanvalue=2 * math.pi, group=group)
     best = torch.argmax(indicator, dim=1)[:, None]  # (N, 1)
     return (torch.take_along_dim(all_points, best[..., None], dim=1)[:, 0],
             torch.take_along_dim(inlier_num, best, dim=1)[:, 0],

@@ -183,10 +183,13 @@ def f32_pyramid(pyramid: list) -> list:
 
 
 def previous_corr_sample(pyramid: list, coords: torch.Tensor,
-                         track_feats: torch.Tensor,
-                         radius: int) -> torch.Tensor:
+                         track_feats: torch.Tensor, radius: int,
+                         cfirst: bool = False) -> torch.Tensor:
     """The NHWC correlation route before the one-launch kernel (same
-    signature as models/tracker.corr_sample)."""
+    signature as models/tracker.corr_sample; channel-first levels are
+    read through NHWC views)."""
+    if cfirst:
+        pyramid = [lvl.permute(0, 1, 3, 4, 2) for lvl in pyramid]
     B, S, N, _ = coords.shape
     C = track_feats.shape[-1]
     if N < 64 and C >= SMALL_C:

@@ -39,6 +39,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vggsfm_tpu_torch.ba import (
     BAConfig,
@@ -76,6 +77,8 @@ from vggsfm_tpu_torch.parallel.merge import (
     save_partial,
     wait_for_partials,
 )
+from vggsfm_tpu_torch.parallel.mesh import make_mesh
+from vggsfm_tpu_torch.parallel.multihost import distributed_bundle_adjust
 from vggsfm_tpu_torch.sfm.normalize import (
     filter_map_observations,
     normalize_reconstruction,
@@ -118,10 +121,11 @@ class VideoConfig:
     # the incremental map (PnP registers on undistorted pixels; the
     # joint BA refines k, tied when shared_camera)
     camera_type: str = "SIMPLE_PINHOLE"
-    # the JAX package shards the joint BA over this many devices
-    # (parallel/multihost.py distributed_bundle_adjust); <= 1, or fewer
-    # devices than asked for, keeps the plain solver. The port has no
-    # distributed solver yet (ROADMAP queue 1, item 6)
+    # shard the joint BA's observations over this many ranks of the
+    # default process group (parallel/multihost.py
+    # distributed_bundle_adjust); <= 1, or a group of fewer ranks, keeps
+    # the plain solver. One process drives one card, so the ranks stand
+    # where the JAX package counts its devices
     distributed_ba_devices: int = 0
     # 3D cell size for duplicate-track fusion at the multi-host map merge
     # (parallel/merge.py fuse_duplicate_points)
@@ -191,6 +195,7 @@ class VideoRunner:
         self.device = sparse_runner.device
         self.timings: dict = {}
         self.windows: list = []
+        self._mesh = None  # the joint BA's mesh, made on first use
 
     # ------------------------------------------------------------------
 
@@ -755,8 +760,39 @@ class VideoRunner:
         return _np(extr_o), _np(X_o)[budget:]
 
     def _device_count(self) -> int:
-        return (torch.cuda.device_count() if self.device.type == "cuda"
-                else 1)
+        """The ranks of the default process group (1 without one): in
+        torch one process drives one card, so these are the devices the
+        joint BA can shard over."""
+        return (dist.get_world_size()
+                if dist.is_available() and dist.is_initialized() else 1)
+
+    def _sparse_ba(self, n_dev, *args, **kw):
+        """`bundle_adjust_sparse`'s (extr, intr, extra, X), or with
+        n_dev > 1 `distributed_bundle_adjust` over the first n_dev ranks
+        (every rank of the group calls it; ranks beyond the mesh take rank
+        0's result)."""
+        if n_dev <= 1:
+            extr, intr, extra_o, X, _ = bundle_adjust_sparse(*args, **kw)
+            return extr, intr, extra_o, X
+        if self._mesh is None or self._mesh.size != n_dev:
+            self._mesh = make_mesh(n_dev, frames_axis=1, device=self.device)
+        mesh = self._mesh
+        extr0, intr0, X0 = args[:3]
+        extra0 = kw.get("extra_params")
+        if mesh.rank < mesh.size:
+            extr, intr, extra_o, X, _ = distributed_bundle_adjust(
+                mesh, *args, extra_params=extra0,
+                pose_free=kw.get("pose_free"), cfg=kw["cfg"],
+                axis="points")
+        else:
+            extr, intr, X = (torch.empty_like(t) for t in (extr0, intr0,
+                                                             X0))
+            extra_o = None if extra0 is None else torch.empty_like(extra0)
+        if self._device_count() > mesh.size:
+            for t in (extr, intr, X, extra_o):
+                if t is not None:
+                    dist.broadcast(t, src=0)
+        return extr, intr, extra_o, X
 
     def _normalize(self, extrinsics, reg, registered) -> None:
         """The gauge normalization of the map, in place."""
@@ -780,13 +816,9 @@ class VideoRunner:
         if P == 0 or len(reg.obs_frame) == 0:
             return
         n_dev = self.cfg.distributed_ba_devices
-        if n_dev > 1 and self._device_count() >= n_dev:
-            # the JAX package shards the observation lists over a device
-            # mesh here (parallel/multihost.py distributed_bundle_adjust)
-            raise NotImplementedError(
-                f"distributed_ba_devices={n_dev}: the joint BA over "
-                f"{n_dev} devices (distributed_bundle_adjust) is not "
-                f"ported yet (ROADMAP queue 1, item 6); set it to 0 or 1")
+        # the JAX rule: shard over n_dev devices where that many are present
+        # (here the group's ranks), else the plain solver
+        n_dev = n_dev if n_dev > 1 and self._device_count() >= n_dev else 1
         with self._timed("video.joint_ba"):
             self._normalize(extrinsics, reg, registered)
             pose_free = registered & (np.arange(T) != 0)
@@ -801,9 +833,9 @@ class VideoRunner:
                                  cg_iters=30, robust_loss="cauchy",
                                  loss_scale=4.0)
             n_obs = len(reg.obs_frame)
-            extr, intr, extra_o, X, _ = bundle_adjust_sparse(
-                self._t(extrinsics), self._t(intrinsics), self._t(reg.xyz),
-                self._t(reg.obs_frame, torch.long),
+            extr, intr, extra_o, X = self._sparse_ba(
+                n_dev, self._t(extrinsics), self._t(intrinsics),
+                self._t(reg.xyz), self._t(reg.obs_frame, torch.long),
                 self._t(reg.obs_point, torch.long), self._t(reg.obs_xy),
                 torch.ones((n_obs,), dtype=torch.float32,
                            device=self.device),

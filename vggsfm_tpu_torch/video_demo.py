@@ -13,6 +13,12 @@ and prints one JSON summary line. With --num-hosts N > 1 each process
 runs with its own --host-id and a shared --exchange-dir; host 0 merges
 the partial maps through files (no process group), runs the joint BA and
 exports.
+
+With --distributed-ba N > 1, N processes run the same command, each with
+its own rank (VGGSFM_COORDINATOR=host:port VGGSFM_NUM_PROCESSES=N
+VGGSFM_PROCESS_ID=r, or under torchrun) and its own --output: every rank
+runs the pipeline, the joint BA's observations are sharded over the
+ranks, and every rank writes the same model.
 """
 
 from __future__ import annotations
@@ -64,9 +70,14 @@ def main(argv=None):
                    help="shared directory for multi-host partial maps "
                         "(required when --num-hosts > 1)")
     p.add_argument("--distributed-ba", type=int, default=0,
-                   help="shard the joint BA over this many local devices: "
-                        "with fewer devices the plain solver runs; with "
-                        "that many it raises (not ported yet)")
+                   help="shard the joint BA over this many ranks of the "
+                        "process group (one process per rank, started "
+                        "with VGGSFM_COORDINATOR / VGGSFM_NUM_PROCESSES / "
+                        "VGGSFM_PROCESS_ID or torchrun's variables); with "
+                        "fewer ranks the plain solver runs")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="the process group's backend (default: nccl on "
+                        "the GPU, gloo on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; raises "
                         "without a GPU unless given cpu)")
@@ -106,6 +117,21 @@ def main(argv=None):
             query_by_midpoint = bool(file_cfg["query_by_midpoint"])
 
     vcfg = VideoConfig(**voverrides)
+    if args.num_hosts > 1 and vcfg.distributed_ba_devices > 1:
+        p.error("--num-hosts > 1 runs the joint BA on host 0 alone; it "
+                "takes no --distributed-ba")
+    if args.num_hosts > 1 or vcfg.distributed_ba_devices > 1:
+        # the process group (no-op for a single process), where the JAX
+        # CLI initializes jax.distributed, and before a sharded joint BA
+        from vggsfm_tpu_torch.parallel.multihost import init_multihost
+
+        if init_multihost(backend=args.dist_backend, device=args.device):
+            import torch.distributed as dist
+
+            from vggsfm_tpu_torch.parallel.mesh import rank_device
+
+            # one card per rank (ranks beyond the cards share them)
+            args.device = str(rank_device(dist.get_rank(), args.device))
     scfg = RunnerConfig(img_size=args.img_size, query_frame_num=1,
                         max_query_pts=vcfg.max_query_pts,
                         query_method=vcfg.query_method,
