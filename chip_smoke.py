@@ -2711,7 +2711,8 @@ def dense_phase(report: dict, launches: dict, shared: dict) -> None:
     stages = ("query_rank", "camera_init", "fmaps", "tracking",
               "preliminary", "sfm", "extra_points", "dense_depth",
               "export", "visuals")
-    missing = [n for n in stages if f'"{n}"'.encode() not in data]
+    # the tracer's ranges (vggsfm_tpu_torch/utils/trace.py)
+    missing = [n for n in stages if f'"vggsfm.{n}"'.encode() not in data]
     assert not missing, f"the trace names no {missing}"
     gt = torch.as_tensor(scene["extrinsics"][:DENSE_FRAMES], device="cuda")
     auc = float(pose_auc30(res["extrinsics"], gt))

@@ -200,7 +200,8 @@ def test_demo_cli_writes_depths_visuals_and_trace(tmp_path, tiny_models,
     square crop is rescaled), depth_input_size 28 from a --config YAML:
     OUT/depths holds one map per image at its original resolution, finite
     and > 0; OUT/visuals the query-point, track and reprojection files;
-    the trace is a Chrome trace whose events name the stages; the summary
+    the trace is a Chrome trace whose events name the stages and spans
+    (`vggsfm.<name>`); the summary
     has the dense_depth and visuals stages."""
     scene_dir = str(tmp_path / "scene")
     scene = tsynth.render_two_plane_scene(4, 128, seed=3)
@@ -244,9 +245,12 @@ def test_demo_cli_writes_depths_visuals_and_trace(tmp_path, tiny_models,
     with open(os.path.join(prof_dir, traces[0])) as f:
         events = json.load(f)["traceEvents"]
     named = {e.get("name") for e in events}
-    # (the query ranking is fixed above, so it opens no stage)
-    assert {"camera_init", "fmaps", "tracking", "preliminary", "sfm",
-            "dense_depth", "export", "visuals"} <= named
+    # (the query ranking is fixed above, so it opens no stage); the
+    # tracer's ranges, the stages and the spans below them
+    assert {"vggsfm." + n for n in (
+        "sparse_reconstruct", "camera_init", "fmaps", "tracking",
+        "preliminary", "sfm", "dense_depth", "export", "visuals",
+        "preliminary.sample", "ba.dense", "ba.iter")} <= named
     assert not torch._C._autograd._profiler_enabled()
 
 

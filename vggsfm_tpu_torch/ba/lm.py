@@ -42,7 +42,7 @@ from vggsfm_tpu_torch.geometry.distortion import (
     apply_distortion,
 )
 from vggsfm_tpu_torch.geometry.rotations import axis_angle_to_matrix
-from vggsfm_tpu_torch.utils import mfu
+from vggsfm_tpu_torch.utils import mfu, trace
 from vggsfm_tpu_torch.utils.precision import f32_matmuls
 
 _EPS = 1e-12
@@ -243,8 +243,10 @@ def reprojection_cost(extrinsics, focal, pp, extra, points3d, tracks, mask,
 def bundle_adjust(*args, **kwargs):
     """FLOP-ledger wrapper over the solver (utils/mfu.py), as in the JAX
     package: every call is recorded under ``ba_dense``. The arguments and
-    the result are `_bundle_adjust`'s."""
-    return mfu.timed_call("ba_dense", _bundle_adjust, args, kwargs)
+    the result are `_bundle_adjust`'s. The call is the tracer's span
+    ``ba.dense``, each LM iteration a span ``ba.iter`` (utils/trace.py)."""
+    with trace.span("ba.dense"):
+        return mfu.timed_call("ba_dense", _bundle_adjust, args, kwargs)
 
 
 @f32_matmuls
@@ -385,26 +387,38 @@ def _bundle_adjust(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
     lam = torch.tensor(cfg.lambda_init, dtype=dtype, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     hist = []
+    live_at_start = []  # while the tracer records: ~done as each began
     for it in range(cfg.max_iterations):
         if it and it % _SYNC_EVERY == 0 and bool(done):
             break
-        dc, dX = step(params, lam)
-        cand = apply(params, dc, dX)
-        new_cost = total_cost(cand)
-        better = new_cost < cost
-        accept = better & ~done
-        params = tuple(torch.where(accept, a, b)
-                       for a, b in zip(cand, params))
-        rel_dec = (cost - new_cost) / torch.clamp(cost, min=_EPS)
-        cost = torch.where(accept, new_cost, cost)
-        lam_new = torch.clamp(
-            torch.where(better, lam * cfg.lambda_down, lam * cfg.lambda_up),
-            cfg.lambda_min, cfg.lambda_max)
-        converged = ((better & (rel_dec < cfg.function_tolerance))
-                     | (~better & (lam_new >= cfg.lambda_max)))
-        lam = torch.where(done, lam, lam_new)
-        done = done | converged
-        hist.append(cost)
+        with trace.span("ba.iter"):
+            dc, dX = step(params, lam)
+            cand = apply(params, dc, dX)
+            new_cost = total_cost(cand)
+            better = new_cost < cost
+            live = ~done
+            if trace.ON:
+                live_at_start.append(live)
+            accept = better & live
+            params = tuple(torch.where(accept, a, b)
+                           for a, b in zip(cand, params))
+            rel_dec = (cost - new_cost) / torch.clamp(cost, min=_EPS)
+            cost = torch.where(accept, new_cost, cost)
+            lam_new = torch.clamp(
+                torch.where(better, lam * cfg.lambda_down,
+                            lam * cfg.lambda_up),
+                cfg.lambda_min, cfg.lambda_max)
+            converged = ((better & (rel_dec < cfg.function_tolerance))
+                         | (~better & (lam_new >= cfg.lambda_max)))
+            lam = torch.where(done, lam, lam_new)
+            done = done | converged
+            hist.append(cost)
+    if trace.ON:
+        # the iterations run, and those begun before `done` was set (the
+        # rest ran only until the host's next read of the flag)
+        trace.count("ba.iters_run", len(hist))
+        if live_at_start:
+            trace.count("ba.iters_useful", torch.stack(live_at_start))
     # the iterations the loop did not run report the final cost, as the
     # while-loop's untouched history does
     hist += [cost] * (cfg.max_iterations - len(hist))

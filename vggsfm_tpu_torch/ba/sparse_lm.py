@@ -39,7 +39,7 @@ from vggsfm_tpu_torch.ba.lm import (
 )
 from vggsfm_tpu_torch.geometry.rotations import axis_angle_to_matrix
 from vggsfm_tpu_torch.ops.eigh import eigh_small
-from vggsfm_tpu_torch.utils import mfu
+from vggsfm_tpu_torch.utils import mfu, trace
 from vggsfm_tpu_torch.utils.precision import f32_matmuls
 
 
@@ -63,8 +63,11 @@ def _segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
 def bundle_adjust_sparse(*args, **kwargs):
     """FLOP-ledger wrapper over the solver (utils/mfu.py), as in the JAX
     package: every call is recorded under ``ba_sparse``. The arguments and
-    the result are `_bundle_adjust_sparse`'s."""
-    return mfu.timed_call("ba_sparse", _bundle_adjust_sparse, args, kwargs)
+    the result are `_bundle_adjust_sparse`'s. The call is the tracer's span
+    ``ba.sparse``, each LM iteration a span ``ba.iter`` (utils/trace.py)."""
+    with trace.span("ba.sparse"):
+        return mfu.timed_call("ba_sparse", _bundle_adjust_sparse, args,
+                              kwargs)
 
 
 @f32_matmuls
@@ -262,26 +265,38 @@ def _bundle_adjust_sparse(extrinsics: torch.Tensor,
     lam = torch.tensor(cfg.lambda_init, dtype=dtype, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     hist = []
+    live_at_start = []  # while the tracer records: ~done as each began
     for it in range(cfg.max_iterations):
         if it and it % _SYNC_EVERY == 0 and bool(done):
             break
-        dc, dX = step(params, lam)
-        cand = apply(params, dc, dX)
-        new_cost = total_cost(cand)
-        better = new_cost < cost
-        accept = better & ~done
-        params = tuple(torch.where(accept, a, b)
-                       for a, b in zip(cand, params))
-        rel_dec = (cost - new_cost) / torch.clamp(cost, min=_EPS)
-        cost = torch.where(accept, new_cost, cost)
-        lam_new = torch.clamp(
-            torch.where(better, lam * cfg.lambda_down, lam * cfg.lambda_up),
-            cfg.lambda_min, cfg.lambda_max)
-        converged = ((better & (rel_dec < cfg.function_tolerance))
-                     | (~better & (lam_new >= cfg.lambda_max)))
-        lam = torch.where(done, lam, lam_new)
-        done = done | converged
-        hist.append(cost)
+        with trace.span("ba.iter"):
+            dc, dX = step(params, lam)
+            cand = apply(params, dc, dX)
+            new_cost = total_cost(cand)
+            better = new_cost < cost
+            live = ~done
+            if trace.ON:
+                live_at_start.append(live)
+            accept = better & live
+            params = tuple(torch.where(accept, a, b)
+                           for a, b in zip(cand, params))
+            rel_dec = (cost - new_cost) / torch.clamp(cost, min=_EPS)
+            cost = torch.where(accept, new_cost, cost)
+            lam_new = torch.clamp(
+                torch.where(better, lam * cfg.lambda_down,
+                            lam * cfg.lambda_up),
+                cfg.lambda_min, cfg.lambda_max)
+            converged = ((better & (rel_dec < cfg.function_tolerance))
+                         | (~better & (lam_new >= cfg.lambda_max)))
+            lam = torch.where(done, lam, lam_new)
+            done = done | converged
+            hist.append(cost)
+    if trace.ON:
+        # the iterations run, and those begun before `done` was set (the
+        # rest ran only until the host's next read of the flag)
+        trace.count("ba.iters_run", len(hist))
+        if live_at_start:
+            trace.count("ba.iters_useful", torch.stack(live_at_start))
     hist += [cost] * (cfg.max_iterations - len(hist))
 
     R_, t_, f_, pp_, k_, X_ = params

@@ -80,7 +80,8 @@ def parse_args(argv):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the run here "
-                        "(Chrome trace JSON: chrome://tracing, Perfetto)")
+                        "(Chrome trace JSON: chrome://tracing, Perfetto), "
+                        "each stage and span a range vggsfm.<name>")
     p.add_argument("--config", default=None,
                    help="YAML config (cfgs/demo.yaml schema); CLI flags "
                         "override file values")

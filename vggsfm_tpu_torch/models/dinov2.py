@@ -23,12 +23,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vggsfm_tpu_torch.models.layers import cast_weight
 from vggsfm_tpu_torch.models.sampling import interpolate_bilinear
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     """`layer` applied in `dtype` (input and weights cast, as flax Dense)."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    return F.linear(x.to(dtype), cast_weight(layer.weight, dtype),
+                    cast_weight(layer.bias, dtype))
 
 
 def layer_norm(x: torch.Tensor, layer: nn.LayerNorm, dtype) -> torch.Tensor:
@@ -127,8 +129,9 @@ class DinoVisionTransformer(nn.Module):
         ps, n, dt = self.patch_size, self.pos_embed_size, self.dtype
         gh, gw = H // ps, W // ps
         proj = self.patch_embed.proj
-        x = F.conv2d(images.to(dt).permute(0, 3, 1, 2), proj.weight.to(dt),
-                     proj.bias.to(dt), stride=ps)
+        x = F.conv2d(images.to(dt).permute(0, 3, 1, 2),
+                     cast_weight(proj.weight, dt), cast_weight(proj.bias, dt),
+                     stride=ps)
         C = x.shape[1]
         x = x.flatten(2).transpose(1, 2)  # (B, gh*gw, C)
 
@@ -141,7 +144,7 @@ class DinoVisionTransformer(nn.Module):
         x = x + pos_patch.reshape(1, gh * gw, C).to(dt)
         cls = (self.cls_token + pos_cls).to(dt).expand(B, 1, C)
         if self.register_tokens is not None:
-            regs = self.register_tokens.to(dt).expand(
+            regs = cast_weight(self.register_tokens, dt).expand(
                 B, self.num_register_tokens, C)
             x = torch.cat([cls, regs, x], dim=1)
         else:

@@ -33,6 +33,7 @@ from vggsfm_tpu_torch.models.camera import (
     seeded_init_,
 )
 from vggsfm_tpu_torch.models.dinov2 import DinoVisionTransformer
+from vggsfm_tpu_torch.models.layers import cast_weight
 from vggsfm_tpu_torch.models.sampling import interpolate_bilinear_nchw
 from vggsfm_tpu_torch.utils.precision import f32_matmuls
 
@@ -47,8 +48,8 @@ def resize(x: torch.Tensor, out_hw) -> torch.Tensor:
 def conv(x: torch.Tensor, layer: nn.Module, dtype) -> torch.Tensor:
     """`layer` (Conv2d or ConvTranspose2d) applied in `dtype`, input and
     weights cast, as flax Conv / ConvTranspose with ``dtype``."""
-    w = layer.weight.to(dtype)
-    b = None if layer.bias is None else layer.bias.to(dtype)
+    w = cast_weight(layer.weight, dtype)
+    b = None if layer.bias is None else cast_weight(layer.bias, dtype)
     x = x.to(dtype)
     if isinstance(layer, nn.ConvTranspose2d):
         return F.conv_transpose2d(x, w, b, stride=layer.stride)

@@ -14,7 +14,9 @@ Parameters are stored in float32. Each module rounds its weights to its
 ``dtype`` at use and computes in the promotion of that dtype and its
 input's, as jnp does for the JAX modules: bf16 tokens stay bf16 (the
 tracker), while f32 tokens meet bf16-rounded weights in f32 (the camera
-former's self-attention and trunk blocks).
+former's self-attention and trunk blocks). Every such cast goes through
+`cast_weight`, which counts the bytes it writes while the tracer records
+(``weights.cast_bytes``, utils/trace.py).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from vggsfm_tpu_torch.ops.fused_mlp import (
     ln_attn_takes,
     mlp_route_takes,
 )
+from vggsfm_tpu_torch.utils import trace
 
 
 def _ln_noaffine(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -56,6 +59,15 @@ def _softmax_over_group(scores, v, group):
     return both[..., :-1] / both[..., -1:]
 
 
+def cast_weight(p: torch.Tensor, dtype) -> torch.Tensor:
+    """A weight `p` cast to `dtype` at its use; while the tracer records,
+    the bytes the cast writes (none where `p` is in `dtype` already) are
+    added to the counter ``weights.cast_bytes``."""
+    if trace.ON and p.dtype != dtype:
+        trace.count("weights.cast_bytes", p.numel() * dtype.itemsize)
+    return p.to(dtype)
+
+
 class TorchMultiheadAttention(nn.Module):
     """Multi-head attention in torch.nn.MultiheadAttention's parameter
     layout; inputs (B, L, C), batch first. Softmax in f32."""
@@ -72,7 +84,7 @@ class TorchMultiheadAttention(nn.Module):
         """(w_in, b_in, w_out, b_out) rounded to the module dtype, in the
         compute dtype `cdt` (default: the module dtype)."""
         dt, cdt = self.dtype, cdt or self.dtype
-        return tuple(p.to(dt).to(cdt) for p in (
+        return tuple(cast_weight(cast_weight(p, dt), cdt) for p in (
             self.in_proj_weight, self.in_proj_bias, self.out_proj.weight,
             self.out_proj.bias))
 
@@ -135,7 +147,7 @@ class Mlp(nn.Module):
         """(w1, b1, w2, b2) rounded to the module dtype, in the compute
         dtype `cdt` (default: the module dtype)."""
         dt, cdt = self.dtype, cdt or self.dtype
-        return tuple(p.to(dt).to(cdt) for p in (
+        return tuple(cast_weight(cast_weight(p, dt), cdt) for p in (
             self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias))
 
     def forward(self, x, ln_residual: bool = False):
@@ -244,8 +256,9 @@ class ResidualBlock(nn.Module):
 
 def conv(layer: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
     """`layer` applied in `dtype` (weights cast at use)."""
-    return F.conv2d(x.to(dtype), layer.weight.to(dtype),
-                    layer.bias.to(dtype), layer.stride, layer.padding)
+    return F.conv2d(x.to(dtype), cast_weight(layer.weight, dtype),
+                    cast_weight(layer.bias, dtype), layer.stride,
+                    layer.padding)
 
 
 def group_norm_1(x, scale, bias, eps: float = 1e-5):

@@ -27,6 +27,7 @@ from vggsfm_tpu_torch.models.encoders import BasicEncoder, ShallowEncoder
 from vggsfm_tpu_torch.models.layers import (
     AttnBlock,
     CrossAttnBlock,
+    cast_weight,
     group_norm_1,
 )
 from vggsfm_tpu_torch.models.sampling import (
@@ -293,13 +294,13 @@ class EfficientUpdateFormer(nn.Module):
         B, N, T, _ = x.shape
         dt, Ch = self.dtype, self.hidden_size
         x = x.to(dt)
-        tokens = F.linear(x, self.input_transform.weight.to(dt),
-                          self.input_transform.bias.to(dt))
+        tokens = F.linear(x, cast_weight(self.input_transform.weight, dt),
+                          cast_weight(self.input_transform.bias, dt))
         init_tokens = tokens
         V = 0
         if self.add_space_attn:
             V = self.virual_tracks.shape[1]
-            virtual = self.virual_tracks.to(dt).expand(B, V, T, Ch)
+            virtual = cast_weight(self.virual_tracks, dt).expand(B, V, T, Ch)
             tokens = torch.cat([tokens, virtual], dim=1)
         Ntot = tokens.shape[1]
         j = 0
@@ -322,8 +323,8 @@ class EfficientUpdateFormer(nn.Module):
         if self.add_space_attn:
             tokens = tokens[:, : Ntot - V]
         tokens = tokens + init_tokens
-        return F.linear(tokens, self.flow_head.weight.to(dt),
-                        self.flow_head.bias.to(dt))
+        return F.linear(tokens, cast_weight(self.flow_head.weight, dt),
+                        cast_weight(self.flow_head.bias, dt))
 
 
 class BaseTrackerPredictor(nn.Module):
@@ -360,7 +361,8 @@ class BaseTrackerPredictor(nn.Module):
 
     def _dense(self, lin: nn.Linear, x):
         dt = self.dtype
-        return F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt))
+        return F.linear(x.to(dt), cast_weight(lin.weight, dt),
+                        cast_weight(lin.bias, dt))
 
     def _iter_step(self, coords, track_feats, pyramid, sampled_pos, qp,
                    flat_hws, corr_cfirst=False, group=None):

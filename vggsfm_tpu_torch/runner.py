@@ -71,7 +71,7 @@ from vggsfm_tpu_torch.utils.depth import (
     align_depth_maps_to_sfm,
     write_colmap_array,
 )
-from vggsfm_tpu_torch.utils import mfu
+from vggsfm_tpu_torch.utils import mfu, trace
 from vggsfm_tpu_torch.utils.device import resolve_device
 from vggsfm_tpu_torch.utils.precision import f32_matmuls
 from vggsfm_tpu_torch.utils.visualizer import WORKERS as VISUAL_WORKERS
@@ -222,7 +222,7 @@ class RunnerConfig:
     visual_tracks: bool = False
     make_reproj_frames: bool = False
     # write a torch.profiler trace (Chrome JSON) of each sparse_reconstruct
-    # here, every stage a named range
+    # here, every stage and span a range vggsfm.<name> (utils/trace.py)
     profile_dir: str | None = None
 
 
@@ -265,7 +265,6 @@ class VGGSfMRunner:
         self._camera = None
         self._depth = None  # DepthAnything, built on first use
         self._query_point_log: list = []  # (frame, xy, valid) per extract
-        self._profiler = None
         self.trace_path = None
         self.timings: dict = {}
 
@@ -282,38 +281,28 @@ class VGGSfMRunner:
             self._camera = camera.to(self.device).eval()
         return self._camera
 
-    @contextlib.contextmanager
-    def _stage(self, name: str):
-        """Accumulate the wall time of a stage, device work included; a
-        named range of the trace while profiling."""
-        t0 = time.perf_counter()
-        with (torch.profiler.record_function(name)
-              if self._profiler is not None else contextlib.nullcontext()):
-            yield
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        self.timings[name] = (self.timings.get(name, 0.0)
-                              + time.perf_counter() - t0)
+    def _stage(self, name: str) -> trace.stage:
+        """A stage of the call (`utils/trace.py`): its wall time, device
+        work included, under ``timings[name]``."""
+        return trace.stage(name, self.timings, self.device)
 
     @contextlib.contextmanager
     def _profiling(self):
         """With `cfg.profile_dir`, a torch.profiler trace (CPU and, on the
         GPU, CUDA activities) of the body, written as a Chrome trace into
-        that folder (its path in `trace_path`). The profiler stops when
-        the body ends, by an exception too, so a failed call leaves none
-        running."""
+        that folder (its path in `trace_path`), with the tracer recording:
+        every stage and span is a range ``vggsfm.<name>``. The profiler
+        stops when the body ends, by an exception too, so a failed call
+        leaves none running."""
         if self.cfg.profile_dir is None:
             yield
             return
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=acts) as prof:
-            self._profiler = prof
-            try:
-                yield
-            finally:
-                self._profiler = None
+        with torch.profiler.profile(activities=acts) as prof, \
+                trace.recording():
+            yield
         os.makedirs(self.cfg.profile_dir, exist_ok=True)
         self.trace_path = os.path.join(
             self.cfg.profile_dir, f"sparse_reconstruct_"
@@ -726,7 +715,7 @@ class VGGSfMRunner:
         own name); the per-frame outputs are then swapped back to the
         caller's frame order and ``center_perm`` is set.
         """
-        with self._profiling():
+        with self._profiling(), trace.call("sparse_reconstruct"):
             return self._sparse_reconstruct(images, masks, image_names,
                                             output_dir, crop_params)
 

@@ -28,6 +28,7 @@ from vggsfm_tpu_torch.twoview.utils import (
     sampson_epipolar_distance,
     trial_validity,
 )
+from vggsfm_tpu_torch.utils import trace
 from vggsfm_tpu_torch.utils.precision import f32_matmuls
 
 
@@ -163,65 +164,75 @@ def estimate_fundamental(points1: torch.Tensor, points2: torch.Tensor,
     shared across the batch, are drawn from `generator`, or given as
     `sample_idx` (max_ransac_iters, 7). Returns a dict with ``fmat``
     (B, 3, 3), ``inlier_num`` (B,), ``inlier_mask`` (B, N) and
-    ``residuals`` (B, N).
+    ``residuals`` (B, N). Its parts are the tracer's spans
+    ``preliminary.sample`` (the minimal sets and the 7-point solve),
+    ``preliminary.score`` (the candidates' scores; the best one's
+    inliers) and ``preliminary.refine`` (both rounds of local
+    optimisation).
     """
     B, N, _ = points1.shape
     dev = points1.device
     thres = max_error ** 2 if squared else max_error
     if valid_mask is None:
         valid_mask = torch.ones(B, N, dtype=torch.bool, device=dev)
-    if sample_idx is None:
-        sample_idx, trial_valid = generate_samples(
-            generator, N, max_ransac_iters, 7, device=dev)
-    else:
-        sample_idx = sample_idx.to(dev)
-        trial_valid = trial_validity(sample_idx)
-    iters = sample_idx.shape[0]
-    flat = sample_idx.reshape(-1)
-    left = points1[:, flat].reshape(-1, 7, 2)
-    right = points2[:, flat].reshape(-1, 7, 2)
+    with trace.span("preliminary.sample"):
+        if sample_idx is None:
+            sample_idx, trial_valid = generate_samples(
+                generator, N, max_ransac_iters, 7, device=dev)
+        else:
+            sample_idx = sample_idx.to(dev)
+            trial_valid = trial_validity(sample_idx)
+        iters = sample_idx.shape[0]
+        flat = sample_idx.reshape(-1)
+        left = points1[:, flat].reshape(-1, 7, 2)
+        right = points2[:, flat].reshape(-1, 7, 2)
 
-    F7, root_valid = run_7point(left, right)
-    F7 = F7.reshape(B, iters * 3, 3, 3)
-    cand_valid = (root_valid.reshape(B, iters, 3)
-                  & trial_valid[None, :, None]).reshape(B, -1)
-    num0, mean0 = _stream_scores(points1, points2, F7, cand_valid,
-                                 valid_mask, thres, chunk, squared)
+        F7, root_valid = run_7point(left, right)
+        F7 = F7.reshape(B, iters * 3, 3, 3)
+        cand_valid = (root_valid.reshape(B, iters, 3)
+                      & trial_valid[None, :, None]).reshape(B, -1)
+    with trace.span("preliminary.score"):
+        num0, mean0 = _stream_scores(points1, points2, F7, cand_valid,
+                                     valid_mask, thres, chunk, squared)
 
-    # local refinement, round 1
-    sel1 = _top_k(torch.where(cand_valid, num0, -1), lo_num)
-    F_lo1 = _stream_local_refine(points1, points2, _take(F7, sel1),
-                                 valid_mask, thres, min(chunk, 32), squared)
-    valid1 = torch.ones(F_lo1.shape[:2], dtype=torch.bool, device=dev)
-    num1, mean1 = _stream_scores(points1, points2, F_lo1, valid1,
-                                 valid_mask, thres, chunk, squared)
-    all_F, all_num, all_mean, all_valid = ([F7, F_lo1], [num0, num1],
-                                           [mean0, mean1],
-                                           [cand_valid, valid1])
-
-    # local refinement, round 2, on the best refined candidates
-    if second_refine:
-        sel2 = _top_k(num1, lo_num // 2)
-        F_lo2 = _stream_local_refine(points1, points2, _take(F_lo1, sel2),
+    with trace.span("preliminary.refine"):
+        # local refinement, round 1
+        sel1 = _top_k(torch.where(cand_valid, num0, -1), lo_num)
+        F_lo1 = _stream_local_refine(points1, points2, _take(F7, sel1),
                                      valid_mask, thres, min(chunk, 32),
                                      squared)
-        valid2 = torch.ones(F_lo2.shape[:2], dtype=torch.bool, device=dev)
-        num2, mean2 = _stream_scores(points1, points2, F_lo2, valid2,
+        valid1 = torch.ones(F_lo1.shape[:2], dtype=torch.bool, device=dev)
+        num1, mean1 = _stream_scores(points1, points2, F_lo1, valid1,
                                      valid_mask, thres, chunk, squared)
-        all_F.append(F_lo2)
-        all_num.append(num2)
-        all_mean.append(mean2)
-        all_valid.append(valid2)
+        all_F, all_num, all_mean, all_valid = ([F7, F_lo1], [num0, num1],
+                                               [mean0, mean1],
+                                               [cand_valid, valid1])
 
-    F_all = torch.cat(all_F, dim=1)
-    score = residual_indicator(torch.cat(all_num, dim=1),
-                               torch.cat(all_mean, dim=1),
-                               torch.cat(all_valid, dim=1))
-    best = torch.argmax(score, dim=1)  # the first maximum
-    best_F = _take(F_all, best[:, None])[:, 0]
+        # local refinement, round 2, on the best refined candidates
+        if second_refine:
+            sel2 = _top_k(num1, lo_num // 2)
+            F_lo2 = _stream_local_refine(points1, points2,
+                                         _take(F_lo1, sel2), valid_mask,
+                                         thres, min(chunk, 32), squared)
+            valid2 = torch.ones(F_lo2.shape[:2], dtype=torch.bool,
+                                device=dev)
+            num2, mean2 = _stream_scores(points1, points2, F_lo2, valid2,
+                                         valid_mask, thres, chunk, squared)
+            all_F.append(F_lo2)
+            all_num.append(num2)
+            all_mean.append(mean2)
+            all_valid.append(valid2)
 
-    res_best = _residuals(points1, points2, best_F[:, None], valid_mask,
-                          squared)[:, 0]
-    inlier_mask = res_best <= thres
+    with trace.span("preliminary.score"):
+        F_all = torch.cat(all_F, dim=1)
+        score = residual_indicator(torch.cat(all_num, dim=1),
+                                   torch.cat(all_mean, dim=1),
+                                   torch.cat(all_valid, dim=1))
+        best = torch.argmax(score, dim=1)  # the first maximum
+        best_F = _take(F_all, best[:, None])[:, 0]
+
+        res_best = _residuals(points1, points2, best_F[:, None],
+                              valid_mask, squared)[:, 0]
+        inlier_mask = res_best <= thres
     return {"fmat": best_F, "inlier_num": inlier_mask.sum(-1),
             "inlier_mask": inlier_mask, "residuals": res_best}

@@ -17,6 +17,7 @@ from vggsfm_tpu_torch.twoview.essential import (
     remove_cheirality,
 )
 from vggsfm_tpu_torch.twoview.fundamental import estimate_fundamental
+from vggsfm_tpu_torch.utils import trace
 
 
 def default_intrinsics(width: float, height: float, dtype=torch.float32,
@@ -47,6 +48,10 @@ def estimate_preliminary_cameras(tracks: torch.Tensor,
     Returns a dict: ``extrinsics`` (B, S, 3, 4) world->cam OpenCV, frame 0
     the identity; ``fmat`` (B, S-1, 3, 3); ``fmat_inlier_mask``
     (B, S-1, N); ``fmat_residuals`` (B, S-1, N); ``default_intri`` (3, 3).
+    E, its decomposition and the cheirality choice are the tracer's span
+    ``preliminary.pose``; the counters ``preliminary.inliers`` and
+    ``preliminary.valid`` count the inliers and the usable tracks over
+    the pairs.
     """
     B, S, N, _ = tracks.shape
     P = B * (S - 1)
@@ -61,15 +66,19 @@ def estimate_preliminary_cameras(tracks: torch.Tensor,
                                 max_error=max_error, lo_num=lo_num,
                                 valid_mask=valid, sample_idx=sample_idx)
     fmat = fres["fmat"]
+    # the inliers over the usable tracks (the inliers are a subset of them)
+    trace.count("preliminary.inliers", fres["inlier_mask"])
+    trace.count("preliminary.valid", valid)
 
-    K = default_intrinsics(width, height, dtype=tracks.dtype,
-                           device=tracks.device)
-    Kb = K.expand(P, 3, 3)
-    Rs, ts = decompose_essential_matrix(
-        essential_from_fundamental(fmat, Kb, Kb))
-    fl = torch.stack([K[0, 0], K[1, 1], K[0, 0], K[1, 1]]).expand(P, 4)
-    pp = torch.stack([K[0, 2], K[1, 2], K[0, 2], K[1, 2]]).expand(P, 4)
-    R, t = remove_cheirality(Rs, ts, query, ref, fl, pp)
+    with trace.span("preliminary.pose"):
+        K = default_intrinsics(width, height, dtype=tracks.dtype,
+                               device=tracks.device)
+        Kb = K.expand(P, 3, 3)
+        Rs, ts = decompose_essential_matrix(
+            essential_from_fundamental(fmat, Kb, Kb))
+        fl = torch.stack([K[0, 0], K[1, 1], K[0, 0], K[1, 1]]).expand(P, 4)
+        pp = torch.stack([K[0, 2], K[1, 2], K[0, 2], K[1, 2]]).expand(P, 4)
+        R, t = remove_cheirality(Rs, ts, query, ref, fl, pp)
 
     rel = torch.cat([R, t[..., None]], dim=-1).reshape(B, S - 1, 3, 4)
     eye = torch.eye(3, 4, dtype=tracks.dtype,

@@ -32,10 +32,8 @@ runner runs (the GPU unless it was built with device="cpu").
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
-import time
 
 import numpy as np
 import torch
@@ -86,6 +84,7 @@ from vggsfm_tpu_torch.sfm.normalize import (
 from vggsfm_tpu_torch.sfm.refine import refine_poses
 from vggsfm_tpu_torch.twoview.pnp import absolute_pose_ransac
 from vggsfm_tpu_torch.twoview.utils import generate_samples
+from vggsfm_tpu_torch.utils import trace
 
 # PnP budget of a window attempt (the JAX runner's absolute_pose_ransac
 # arguments)
@@ -183,11 +182,13 @@ def _np(x):
 class VideoRunner:
     """Incremental runner driving a VGGSfMRunner's models over windows.
 
-    `timings` accumulates the wall time of `video.init`, `video.windows`
-    (its tracker calls also under `video.track`) and `video.joint_ba`;
-    `windows` holds one record per processed window: its frames, the
-    attempts of the retry schedule it took, its wall time and its tracker
-    time."""
+    `timings` accumulates the wall time of the stages `video.init`,
+    `video.windows` (one stage `video.window` a window; its tracker calls
+    also under `video.track`) and `video.joint_ba` (`utils/trace.py`);
+    `windows` holds one record per processed window, from its stage: its
+    frames, the attempts of the retry schedule it took, the frames PnP
+    registered, whether the camera fill ran, its wall time and its
+    tracker time."""
 
     def __init__(self, sparse_runner, cfg: VideoConfig = VideoConfig()):
         self.r = sparse_runner
@@ -198,16 +199,6 @@ class VideoRunner:
         self._mesh = None  # the joint BA's mesh, made on first use
 
     # ------------------------------------------------------------------
-
-    @contextlib.contextmanager
-    def _timed(self, name: str):
-        """Accumulate a stage's wall time, the device's work included."""
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timings[name] = (self.timings.get(name, 0.0)
-                              + time.perf_counter() - t0)
 
     def _t(self, x, dtype=torch.float32) -> torch.Tensor:
         """A numpy array (or tensor) on the runner's device."""
@@ -222,7 +213,7 @@ class VideoRunner:
         global frame indices (informational: lets tests substitute an
         oracle tracker). Returns (tracks (Sw, N, 2), vis (Sw, N)) as numpy.
         """
-        with self._timed("video.track"):
+        with trace.stage("video.track", self.timings, self.device):
             imgs = self.r._to_device(images_w)[None]
             fmaps = self.r.fmaps(imgs)
             track, vis = self.r._coarse_track(
@@ -321,18 +312,19 @@ class VideoRunner:
             pnp_px = self._undistort_px(
                 tracks_p[1:, :budget], intrinsics[q],
                 None if extra is None else extra[q])
-            pnp = absolute_pose_ransac(
-                self._t(np.repeat(X_map[None], Sw_full - 1, 0)),
-                self._t(pnp_px),
-                self._t(np.repeat(intrinsics[q][None], Sw_full - 1, 0)),
-                valid_mask=self._t(
-                    (vis_p[1:, :budget] > cfg.vis_thresh)
-                    & map_valid[None], torch.bool),
-                max_ransac_iters=_PNP_ITERS, lo_num=16, f_trials=1,
-                sample_idx=self._pnp_samples(start, budget))
-            extr_new = _np(pnp["extrinsics"])[:Sw - 1]
-            ok = (_np(pnp["inlier_num"])
-                  >= cfg.min_inlier_per_frame)[:Sw - 1]
+            with trace.span("video.pnp"):
+                pnp = absolute_pose_ransac(
+                    self._t(np.repeat(X_map[None], Sw_full - 1, 0)),
+                    self._t(pnp_px),
+                    self._t(np.repeat(intrinsics[q][None], Sw_full - 1, 0)),
+                    valid_mask=self._t(
+                        (vis_p[1:, :budget] > cfg.vis_thresh)
+                        & map_valid[None], torch.bool),
+                    max_ransac_iters=_PNP_ITERS, lo_num=16, f_trials=1,
+                    sample_idx=self._pnp_samples(start, budget))
+                extr_new = _np(pnp["extrinsics"])[:Sw - 1]
+                ok = (_np(pnp["inlier_num"])
+                      >= cfg.min_inlier_per_frame)[:Sw - 1]
         else:
             extr_new = np.repeat(extrinsics[q][None], Sw - 1, 0)
             ok = np.zeros((Sw - 1,), bool)
@@ -403,148 +395,15 @@ class VideoRunner:
         Returns the advanced (end, windows_done).
         """
         cfg = self.cfg
-        W = images.shape[2]
-        H = images.shape[1]
         while end < stop:
-            t_win = time.perf_counter()
-            track_s0 = self.timings.get("video.track", 0.0)
-            # ---- retry schedule when PnP registration collapses:
-            # full window -> 2x query points -> shrunk window -> step the
-            # query frame back (parity: video_runner.py:712-751, :169-176)
-            regd = np.nonzero(registered[:end])[0]
-            q0 = int(regd[-1])
-            schedule = [
-                (q0, cfg.window_size, 1),
-                (q0, cfg.window_size, 2),
-                (q0, max(cfg.min_window_size, cfg.window_size // 2), 2),
-            ]
-            for back in range(1, cfg.max_step_back + 1):
-                if len(regd) > back:
-                    schedule.append((int(regd[-1 - back]),
-                                     cfg.window_size, 2))
-            res = None
-            attempts = 0
-            for q, wsz, mult in schedule:
-                attempts += 1
-                attempt = self._attempt_window(
-                    images, reg, extrinsics, intrinsics, q, end,
-                    min(end + wsz, stop), mult, pad_frames=wsz + 1,
-                    extra=extra)
-                if attempt["ok"].any():
-                    res = attempt
-                    break
-            if res is None:
-                res = attempt  # nothing registered by PnP; fall through
-
-            q = res["q"]
-            w_end = res["w_end"]
-            frames_w = res["frames_w"]
-            Sw = len(frames_w)
-            new_frames = frames_w[1:]
-            tracks_w, vis_w = res["tracks"], res["vis"]
-            n_map, map_ids = res["n_map"], res["map_ids"]
-            budget = res["budget"]
-            map_tracks, map_vis = res["map_tracks"], res["map_vis"]
-            X_map = reg.xyz[map_ids]
-            extr_new, ok = res["extr_new"], res["ok"]
-
-            # ---- fill frames PnP could not place: camera-predictor poses
-            # aligned SE3+scale onto the registered map (parity:
-            # video_runner.py:655-686 via utils/align.py:145-252), else the
-            # query pose
-            fill = np.repeat(extrinsics[q][None], Sw - 1, 0)
-            camera_aligned = False
-            if not ok.all() and cfg.align_with_camera_predictor:
-                # anchor poses must be the CURRENT estimates: the query's
-                # registered pose + this window's fresh PnP results (the
-                # global rows of the new frames are still unset)
-                anchor_extr = np.concatenate(
-                    [extrinsics[q][None], extr_new], axis=0)
-                aligned = self._camera_align_window(
-                    images[frames_w], anchor_extr,
-                    np.concatenate([[True], ok]), (W, H))
-                if aligned is not None:
-                    fill = aligned[1:]
-                    camera_aligned = True
-            extr_new = np.where(ok[:, None, None], extr_new, fill)
-            for i, fidx in enumerate(new_frames):
-                extrinsics[fidx] = extr_new[i]
-                intrinsics[fidx] = intrinsics[q]
-                if extra is not None:
-                    extra[fidx] = extra[q]
-                registered[fidx] = True
-
-            if n_map >= 6:
-                # refine new poses against the frozen map
-                extr_w, _, _, _ = refine_poses(
-                    self._t(extrinsics[frames_w]),
-                    self._t(intrinsics[frames_w]), self._t(X_map),
-                    self._t(map_tracks), self._t(map_vis, torch.bool),
-                    (W, H),
-                    extra_params=(None if extra is None
-                                  else self._t(extra[frames_w])),
-                    refine_intrinsics=False)
-                extr_w = _np(extr_w)
-                for i, fidx in enumerate(frames_w[1:], start=1):
-                    extrinsics[fidx] = extr_w[i]
-
-            # record observations of map points in the new frames
-            for i, fidx in enumerate(new_frames, start=1):
-                seen = np.nonzero(map_vis[i])[0]
-                reg.add_observations(
-                    np.full(len(seen), fidx), map_ids[seen],
-                    map_tracks[i][seen])
-
-            # ---- triangulate fresh tracks over the window
-            fresh_tracks = tracks_w[:, budget:]
-            fresh_vis = vis_w[:, budget:]
-            tn = cam_from_img(self._t(fresh_tracks),
-                              self._t(intrinsics[frames_w]),
-                              None if extra is None
-                              else self._t(extra[frames_w]))
-            pts_new, inl_num, inl_mask = triangulate_tracks(
-                self._t(extrinsics[frames_w]), tn,
-                track_vis=self._t(fresh_vis), max_ransac_iters=32,
-                seed=end)
-            pts_new = _np(pts_new)
-            inl_mask = _np(inl_mask).T  # (Sw, Nf)
-            keep = _np(inl_num) >= 2
-            pts_new = np.where(keep[:, None], pts_new, 0.0)
-
-            # ---- per-window BA: jointly polish the window's new poses and
-            # new points against the tracked observations, with the query
-            # pose and all pre-existing map points held constant (parity:
-            # video_runner.py:800-836)
-            if n_map >= 6 and keep.any():
-                extr_w_ba, pts_new = self._window_ba(
-                    extrinsics[frames_w], intrinsics[frames_w],
-                    None if extra is None else extra[frames_w],
-                    X_map, map_tracks, map_vis, pts_new, fresh_tracks,
-                    inl_mask & keep[None], keep)
-                for i, fidx in enumerate(frames_w[1:], start=1):
-                    extrinsics[fidx] = extr_w_ba[i]
-
-            new_ids = reg.add_points(pts_new[keep])
-            fr_i, pv_i = np.nonzero(inl_mask[:, keep])
-            frame_lookup = np.asarray(frames_w)
-            reg.add_observations(frame_lookup[fr_i], new_ids[pv_i],
-                                 fresh_tracks[:, keep][fr_i, pv_i])
-
-            end = w_end
+            with trace.stage("video.window", self.timings, self.device,
+                             key="video.windows") as win:
+                end = self._window(win, images, reg, extrinsics,
+                                   intrinsics, extra, registered, end, stop)
             windows_done += 1
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            dt = time.perf_counter() - t_win
-            self.timings["video.windows"] = (
-                self.timings.get("video.windows", 0.0) + dt)
             self.windows.append({
-                "frames": [int(frames_w[1]), int(w_end)],
-                "query": int(q), "attempts": attempts,
-                "registered_by_pnp": int(ok.sum()),
-                "camera_aligned": camera_aligned,
-                "seconds": dt,
-                "track_seconds": (self.timings.get("video.track", 0.0)
-                                  - track_s0)})
+                **win.attrs, "seconds": win.seconds,
+                "track_seconds": win.inner.get("video.track", 0.0)})
 
             if windows_done % cfg.joint_ba_interval == 0 or end >= stop:
                 if joint_ba:
@@ -556,6 +415,145 @@ class VideoRunner:
                                          windows_done, extra=extra)
 
         return end, windows_done
+
+    def _window(self, win, images, reg, extrinsics, intrinsics, extra,
+                registered, end, stop) -> int:
+        """One window from frame `end`: its attempts of the retry
+        schedule, the PnP registration (or the fill), the pose
+        refinement, the new map observations, the triangulation of the
+        fresh tracks and the window BA, all on the arrays in place.
+        Notes the window's record on the stage `win` and returns the
+        window's end."""
+        cfg = self.cfg
+        W = images.shape[2]
+        H = images.shape[1]
+        # ---- retry schedule when PnP registration collapses:
+        # full window -> 2x query points -> shrunk window -> step the
+        # query frame back (parity: video_runner.py:712-751, :169-176)
+        regd = np.nonzero(registered[:end])[0]
+        q0 = int(regd[-1])
+        schedule = [
+            (q0, cfg.window_size, 1),
+            (q0, cfg.window_size, 2),
+            (q0, max(cfg.min_window_size, cfg.window_size // 2), 2),
+        ]
+        for back in range(1, cfg.max_step_back + 1):
+            if len(regd) > back:
+                schedule.append((int(regd[-1 - back]),
+                                 cfg.window_size, 2))
+        res = None
+        attempts = 0
+        for q, wsz, mult in schedule:
+            attempts += 1
+            attempt = self._attempt_window(
+                images, reg, extrinsics, intrinsics, q, end,
+                min(end + wsz, stop), mult, pad_frames=wsz + 1,
+                extra=extra)
+            if attempt["ok"].any():
+                res = attempt
+                break
+        if res is None:
+            res = attempt  # nothing registered by PnP; fall through
+
+        q = res["q"]
+        w_end = res["w_end"]
+        frames_w = res["frames_w"]
+        Sw = len(frames_w)
+        new_frames = frames_w[1:]
+        tracks_w, vis_w = res["tracks"], res["vis"]
+        n_map, map_ids = res["n_map"], res["map_ids"]
+        budget = res["budget"]
+        map_tracks, map_vis = res["map_tracks"], res["map_vis"]
+        X_map = reg.xyz[map_ids]
+        extr_new, ok = res["extr_new"], res["ok"]
+
+        # ---- fill frames PnP could not place: camera-predictor poses
+        # aligned SE3+scale onto the registered map (parity:
+        # video_runner.py:655-686 via utils/align.py:145-252), else the
+        # query pose
+        fill = np.repeat(extrinsics[q][None], Sw - 1, 0)
+        camera_aligned = False
+        if not ok.all() and cfg.align_with_camera_predictor:
+            # anchor poses must be the CURRENT estimates: the query's
+            # registered pose + this window's fresh PnP results (the
+            # global rows of the new frames are still unset)
+            anchor_extr = np.concatenate(
+                [extrinsics[q][None], extr_new], axis=0)
+            aligned = self._camera_align_window(
+                images[frames_w], anchor_extr,
+                np.concatenate([[True], ok]), (W, H))
+            if aligned is not None:
+                fill = aligned[1:]
+                camera_aligned = True
+        extr_new = np.where(ok[:, None, None], extr_new, fill)
+        for i, fidx in enumerate(new_frames):
+            extrinsics[fidx] = extr_new[i]
+            intrinsics[fidx] = intrinsics[q]
+            if extra is not None:
+                extra[fidx] = extra[q]
+            registered[fidx] = True
+
+        if n_map >= 6:
+            # refine new poses against the frozen map
+            extr_w, _, _, _ = refine_poses(
+                self._t(extrinsics[frames_w]),
+                self._t(intrinsics[frames_w]), self._t(X_map),
+                self._t(map_tracks), self._t(map_vis, torch.bool),
+                (W, H),
+                extra_params=(None if extra is None
+                              else self._t(extra[frames_w])),
+                refine_intrinsics=False)
+            extr_w = _np(extr_w)
+            for i, fidx in enumerate(frames_w[1:], start=1):
+                extrinsics[fidx] = extr_w[i]
+
+        # record observations of map points in the new frames
+        for i, fidx in enumerate(new_frames, start=1):
+            seen = np.nonzero(map_vis[i])[0]
+            reg.add_observations(
+                np.full(len(seen), fidx), map_ids[seen],
+                map_tracks[i][seen])
+
+        # ---- triangulate fresh tracks over the window
+        fresh_tracks = tracks_w[:, budget:]
+        fresh_vis = vis_w[:, budget:]
+        tn = cam_from_img(self._t(fresh_tracks),
+                          self._t(intrinsics[frames_w]),
+                          None if extra is None
+                          else self._t(extra[frames_w]))
+        pts_new, inl_num, inl_mask = triangulate_tracks(
+            self._t(extrinsics[frames_w]), tn,
+            track_vis=self._t(fresh_vis), max_ransac_iters=32,
+            seed=end)
+        pts_new = _np(pts_new)
+        inl_mask = _np(inl_mask).T  # (Sw, Nf)
+        keep = _np(inl_num) >= 2
+        pts_new = np.where(keep[:, None], pts_new, 0.0)
+
+        # ---- per-window BA: jointly polish the window's new poses and
+        # new points against the tracked observations, with the query
+        # pose and all pre-existing map points held constant (parity:
+        # video_runner.py:800-836)
+        if n_map >= 6 and keep.any():
+            with trace.span("video.window_ba"):
+                extr_w_ba, pts_new = self._window_ba(
+                    extrinsics[frames_w], intrinsics[frames_w],
+                    None if extra is None else extra[frames_w],
+                    X_map, map_tracks, map_vis, pts_new, fresh_tracks,
+                    inl_mask & keep[None], keep)
+            for i, fidx in enumerate(frames_w[1:], start=1):
+                extrinsics[fidx] = extr_w_ba[i]
+
+        new_ids = reg.add_points(pts_new[keep])
+        fr_i, pv_i = np.nonzero(inl_mask[:, keep])
+        frame_lookup = np.asarray(frames_w)
+        reg.add_observations(frame_lookup[fr_i], new_ids[pv_i],
+                             fresh_tracks[:, keep][fr_i, pv_i])
+
+        win.note(frames=[int(frames_w[1]), int(w_end)], query=int(q),
+                 attempts=attempts, registered_by_pnp=int(ok.sum()),
+                 camera_aligned=camera_aligned)
+        return w_end
 
     def _initial_map(self, images):
         """Bootstrap state: full sparse solve of the initial window.
@@ -578,7 +576,7 @@ class VideoRunner:
         # must use the same camera model for the init window's
         # extra params to exist)
         S0 = min(cfg.init_window_size, T)
-        with self._timed("video.init"):
+        with trace.stage("video.init", self.timings, self.device):
             init = self.r.sparse_reconstruct(images[:S0])
             extrinsics[:S0] = _np(init["extrinsics"])
             intrinsics[:S0] = _np(init["intrinsics"])
@@ -666,40 +664,41 @@ class VideoRunner:
         COLMAP export (real filenames + original-resolution rescale,
         parity: video_runner.py:198-206 back_to_original_resolution).
         """
-        cfg = self.cfg
-        T, R_img = images.shape[0], images.shape[1]
-        W = R_img
-        H = R_img
+        with trace.call("video.run"):
+            cfg = self.cfg
+            T, R_img = images.shape[0], images.shape[1]
+            W = R_img
+            H = R_img
 
-        radial = cfg.camera_type == "SIMPLE_RADIAL"
-        if resume_from is not None:
-            (reg, extrinsics, intrinsics, registered, end,
-             windows_done, extra) = self.load_checkpoint(resume_from)
-            if radial and extra is None:
-                extra = np.zeros((T, 1), np.float32)
-        else:
-            (reg, extrinsics, intrinsics, extra, registered,
-             end) = self._initial_map(images)
-            windows_done = 0
-        end, windows_done = self._process_range(
-            images, reg, extrinsics, intrinsics, extra, registered,
-            end, T, windows_done, checkpoint_path=checkpoint_path)
+            radial = cfg.camera_type == "SIMPLE_RADIAL"
+            if resume_from is not None:
+                (reg, extrinsics, intrinsics, registered, end,
+                 windows_done, extra) = self.load_checkpoint(resume_from)
+                if radial and extra is None:
+                    extra = np.zeros((T, 1), np.float32)
+            else:
+                (reg, extrinsics, intrinsics, extra, registered,
+                 end) = self._initial_map(images)
+                windows_done = 0
+            end, windows_done = self._process_range(
+                images, reg, extrinsics, intrinsics, extra, registered,
+                end, T, windows_done, checkpoint_path=checkpoint_path)
 
-        colors = self._point_colors(images, reg)
-        predictions = {
-            "extrinsics": extrinsics,
-            "intrinsics": intrinsics,
-            "extra_params": extra,
-            "points3d": reg.xyz,
-            "colors": colors,
-            "registered": registered,
-            "num_points": reg.num_points,
-            "num_observations": len(reg.obs_frame),
-        }
-        if output_dir is not None:
-            self._export(predictions, reg, (W, H), output_dir,
-                         image_names=image_names, crop_params=crop_params)
-        return predictions
+            colors = self._point_colors(images, reg)
+            predictions = {
+                "extrinsics": extrinsics,
+                "intrinsics": intrinsics,
+                "extra_params": extra,
+                "points3d": reg.xyz,
+                "colors": colors,
+                "registered": registered,
+                "num_points": reg.num_points,
+                "num_observations": len(reg.obs_frame),
+            }
+            if output_dir is not None:
+                self._export(predictions, reg, (W, H), output_dir,
+                             image_names=image_names, crop_params=crop_params)
+            return predictions
 
     @staticmethod
     def _point_colors(images, reg) -> np.ndarray:
@@ -819,7 +818,7 @@ class VideoRunner:
         # the JAX rule: shard over n_dev devices where that many are present
         # (here the group's ranks), else the plain solver
         n_dev = n_dev if n_dev > 1 and self._device_count() >= n_dev else 1
-        with self._timed("video.joint_ba"):
+        with trace.stage("video.joint_ba", self.timings, self.device):
             self._normalize(extrinsics, reg, registered)
             pose_free = registered & (np.arange(T) != 0)
             # a video sequence is one physical camera: tie the focal step
