@@ -244,6 +244,11 @@ def test_bundle_adjust_with_group_matches_without(job):
         _close(cost0, info["initial_cost"], 0, 1e-5)
     for a, b_ in zip(res[0]["ba"], res[1]["ba"]):
         assert torch.equal(a, b_)  # every rank the same cameras
+    # with a group the LM loops stay eager: nothing replayed from a graph
+    for r in res:
+        for name in ("ba.dense", "ba.sparse"):
+            c = r["lm_counts"][name]
+            assert c["ba.iters_run"] > 1 and c["ba.iters_graphed"] == 0
 
 
 def test_distributed_bundle_adjust_matches_jax(job):

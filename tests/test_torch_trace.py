@@ -190,7 +190,8 @@ def _solve(solver, **cfg):
 def test_lm_counts_its_iterations(solver, cfg, useful, run):
     """`ba.iters_run` is the iterations the loop ran (its `ba.iter` spans),
     `ba.iters_useful` the index of the first iteration that began with
-    `done` set (all of them where none did), both on the solver's span."""
+    `done` set (all of them where none did), both on the solver's span;
+    on the CPU none is replayed from a graph (`ba.iters_graphed` 0)."""
     with trace.recording() as rec:
         _solve(solver, **cfg)
     top = [s for s in rec.spans if s["parent"] is None]
@@ -198,7 +199,8 @@ def test_lm_counts_its_iterations(solver, cfg, useful, run):
     iters = [s for s in rec.spans if s["name"] == "ba.iter"]
     assert all(s["parent"] == top[0]["index"] for s in iters)
     assert top[0]["counters"] == {"ba.iters_run": run,
-                                  "ba.iters_useful": useful}
+                                  "ba.iters_useful": useful,
+                                  "ba.iters_graphed": 0}
     assert len(iters) == run
 
 

@@ -81,6 +81,7 @@ def parallel_job(rank, world, inp) -> dict:
     from vggsfm_tpu_torch.models.tracker import BaseTrackerPredictor
     from vggsfm_tpu_torch.parallel.mesh import make_mesh
     from vggsfm_tpu_torch.parallel.multihost import distributed_bundle_adjust
+    from vggsfm_tpu_torch.utils import trace
 
     out = {}
     mesh = make_mesh(device="cpu")
@@ -112,17 +113,22 @@ def parallel_job(rank, world, inp) -> dict:
     blk = ax.block_size(N)
     sl = slice(rank * blk, (rank + 1) * blk)
     cfg = BAConfig(max_iterations=6, refine_focal=True)
-    extr, intr, _, X, info = bundle_adjust(
-        b["extr"], b["intr"], b["X"][sl], b["tracks"][:, sl],
-        b["mask"][:, sl], cfg=cfg, group=ax)
-    out["ba"] = (extr, intr, ax.all_gather(X, 0), info["final_cost"],
-                 info["initial_cost"])
+    # the LM counters of the calls with a group: their loops stay eager
+    with trace.recording() as rec:
+        extr, intr, _, X, info = bundle_adjust(
+            b["extr"], b["intr"], b["X"][sl], b["tracks"][:, sl],
+            b["mask"][:, sl], cfg=cfg, group=ax)
+        out["ba"] = (extr, intr, ax.all_gather(X, 0), info["final_cost"],
+                     info["initial_cost"])
 
-    d = inp["dist"]
-    scfg = SparseBAConfig(max_iterations=8, refine_focal=False, cg_iters=40)
-    out["dist"] = distributed_bundle_adjust(
-        mesh, d["extr"], d["intr"], d["X"], d["fr"], d["pt"], d["xy"],
-        d["w"], cfg=scfg)
+        d = inp["dist"]
+        scfg = SparseBAConfig(max_iterations=8, refine_focal=False,
+                              cg_iters=40)
+        out["dist"] = distributed_bundle_adjust(
+            mesh, d["extr"], d["intr"], d["X"], d["fr"], d["pt"], d["xy"],
+            d["w"], cfg=scfg)
+    out["lm_counts"] = {s["name"]: s["counters"] for s in rec.spans
+                        if s["name"] in ("ba.dense", "ba.sparse")}
     p = inp["pad"]
     out["pad"] = distributed_bundle_adjust(
         mesh, p["extr"], p["intr"], p["X"], p["fr"], p["pt"], p["xy"],

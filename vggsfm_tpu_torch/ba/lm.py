@@ -16,10 +16,12 @@ What differs from the JAX solver, by design:
     exp(ω) R0), t, log f, the distortion terms and X. The JAX solver takes
     `jax.jacfwd` of a per-point residual (`_residual_one`, kept here as
     the reference the tests hold the closed form against);
-  * the LM loop runs `max_iterations` masked steps: a `done` flag on the
-    device stops every update once the solve has converged, which gives
-    the `lax.while_loop`'s results exactly, and the host reads the flag
-    every `_SYNC_EVERY` iterations to leave early;
+  * the LM loop (`lm_loop`, shared with ba/sparse_lm.py) runs
+    `max_iterations` masked steps: a `done` flag on the device stops every
+    update once the solve has converged, which gives the
+    `lax.while_loop`'s results exactly, and the host reads the flag every
+    `_SYNC_EVERY` iterations to leave early; on a CUDA device the
+    iterations after the first are replayed from a CUDA graph;
   * all points are assembled in one pass (the JAX `point_chunk` bounds
     a TPU's memory; W is 12 x S x N x C bytes, 22 MB at 8 frames x
     32,768 points);
@@ -33,9 +35,11 @@ through the tying matrix T (solve Tᵀ A T z = Tᵀ b).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from vggsfm_tpu_torch.geometry.distortion import (
     _distortion_jacobian,
@@ -236,6 +240,168 @@ def reprojection_cost(extrinsics, focal, pp, extra, points3d, tracks, mask,
 
 
 # ---------------------------------------------------------------------------
+# the LM loop (both solvers)
+# ---------------------------------------------------------------------------
+
+
+def _lm_iteration(step, apply, total_cost, cfg: BAConfig, params, cost, lam,
+                  done):
+    """One masked LM iteration: the step, the candidate's cost, then the
+    accept / damping / convergence update. Returns the new (params, cost,
+    lam, done) and ``live``, ~done as the iteration began."""
+    dc, dX = step(params, lam)
+    cand = apply(params, dc, dX)
+    new_cost = total_cost(cand)
+    better = new_cost < cost
+    live = ~done
+    accept = better & live
+    params = tuple(torch.where(accept, a, b) for a, b in zip(cand, params))
+    rel_dec = (cost - new_cost) / torch.clamp(cost, min=_EPS)
+    cost = torch.where(accept, new_cost, cost)
+    lam_new = torch.clamp(
+        torch.where(better, lam * cfg.lambda_down, lam * cfg.lambda_up),
+        cfg.lambda_min, cfg.lambda_max)
+    converged = ((better & (rel_dec < cfg.function_tolerance))
+                 | (~better & (lam_new >= cfg.lambda_max)))
+    lam = torch.where(done, lam, lam_new)
+    return params, cost, lam, done | converged, live
+
+
+def _graphable(device: torch.device, group) -> bool:
+    """Whether the LM loop on `device` (its initial cost's, so where every
+    input is) can replay its iterations from a CUDA graph: a CUDA device,
+    no process group (its collectives stay eager), no dispatch mode that
+    must see each operation (the FLOP counter), and no capture already
+    under way."""
+    return (device.type == "cuda" and group is None
+            and _get_current_dispatch_mode() is None
+            and not torch.cuda.is_current_stream_capturing())
+
+
+_CAPTURE: dict = {}  # device index -> (capture stream, the pool's keeper)
+
+
+def _capture_pool(device: torch.device):
+    """(the stream, the memory pool) the LM graphs on `device` are
+    captured on and into, one of each for the process, so that each
+    call's capture reuses the blocks of the last call's freed graph (the
+    caching allocator reuses a block on the stream that freed it). A pool
+    lives while a graph captured into it does, so a one-kernel graph,
+    never replayed, keeps it; a pool of its own for each call would stay
+    reserved, dead, until the card ran out of memory."""
+    if device.index not in _CAPTURE:
+        stream, keeper = torch.cuda.Stream(device), torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            keeper.capture_begin(capture_error_mode="thread_local")
+            torch.zeros(1, device=device)
+            keeper.capture_end()
+        _CAPTURE[device.index] = (stream, keeper)
+    stream, keeper = _CAPTURE[device.index]
+    return stream, keeper.pool()
+
+
+def lm_loop(step, apply, total_cost, params: tuple, cfg: BAConfig,
+            group=None):
+    """The LM loop of both solvers: up to `max_iterations` masked steps
+    from `params` under a device `done` flag that the host reads every
+    `_SYNC_EVERY` iterations. `step(params, lam)` gives the camera and
+    point steps, `apply(params, dc, dX)` the candidate parameters,
+    `total_cost(params)` the cost.
+
+    Where `_graphable` holds, iteration 0 runs eagerly, warming up the
+    library handles, the cached index tensors and the allocator; one
+    iteration is then captured as a CUDA graph and replayed for the
+    others: the same kernels at the same shapes, one launch an iteration.
+    The graph lives for the call. Elsewhere every iteration runs eagerly.
+
+    Returns (params, info) with ``info = {"cost": the cost after each
+    iteration (max_iterations,), "initial_cost", "final_cost"}``; the
+    iterations not run report the final cost, as the while-loop's
+    untouched history does. While the tracer records, each iteration is a
+    span ``ba.iter``, and the counters ``ba.iters_run``,
+    ``ba.iters_useful`` (begun before `done` was set; the rest ran only
+    until the host's next read of the flag) and ``ba.iters_graphed``
+    (replayed from the graph) go to the enclosing span."""
+    n = cfg.max_iterations
+    cost0 = total_cost(params)
+    dev = cost0.device
+    lam = torch.tensor(cfg.lambda_init, dtype=cost0.dtype, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    iterate = functools.partial(_lm_iteration, step, apply, total_cost, cfg)
+
+    if n > 1 and _graphable(dev, group):
+        params, cost, hist, useful, n_run = _graphed_loop(
+            iterate, (params, cost0, lam, done), n)
+        n_graphed = n_run - 1
+    else:
+        cost, hist, lives = cost0, [], []
+        for it in range(n):
+            if it and it % _SYNC_EVERY == 0 and bool(done):
+                break
+            with trace.span("ba.iter"):
+                params, cost, lam, done, live = iterate(params, cost, lam,
+                                                        done)
+            hist.append(cost)
+            if trace.ON:
+                lives.append(live)
+        n_run, n_graphed = len(hist), 0
+        useful = torch.stack(lives) if lives else None
+        hist = (torch.stack(hist + [cost] * (n - n_run)) if n
+                else cost0.new_zeros(0))
+    if trace.ON:
+        trace.count("ba.iters_run", n_run)
+        trace.count("ba.iters_graphed", n_graphed)
+        if useful is not None:
+            trace.count("ba.iters_useful", useful)
+    return params, {"cost": hist, "initial_cost": cost0, "final_cost": cost}
+
+
+def _graphed_loop(iterate, state: tuple, n: int):
+    """`lm_loop`'s iterations from `state` (params, cost, lam, done) on a
+    CUDA device: iteration 0 eagerly, the others replayed from one
+    captured iteration. The graph writes each iteration's cost and live
+    flag into device buffers at a device counter. Returns (params, cost,
+    the cost history (n,), the live flags of the iterations run while the
+    tracer records, their count)."""
+    dev = state[1].device
+    hist = state[1].new_empty(n)
+    live_at = torch.empty(n, dtype=torch.bool, device=dev)
+    it = torch.zeros(1, dtype=torch.long, device=dev)
+
+    def run(params, cost, lam, done):
+        params, cost, lam, done, live = iterate(params, cost, lam, done)
+        hist.index_copy_(0, it, cost.view(1))
+        live_at.index_copy_(0, it, live.view(1))
+        it.add_(1)
+        return params, cost, lam, done
+
+    with trace.span("ba.iter"):
+        params, cost, lam, done = run(*state)
+    # iteration 0's results are fresh tensors: the graph reads them and
+    # writes each iteration's results over them
+    static = (*params, cost, lam, done)
+    graph = torch.cuda.CUDAGraph()
+    stream, pool = _capture_pool(dev)
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            new_params, *new = run(params, cost, lam, done)
+            for s, v in zip(static, (*new_params, *new)):
+                s.copy_(v)
+            del new_params, new
+        finally:
+            graph.capture_end()
+    n_run = 1
+    while n_run < n and not (n_run % _SYNC_EVERY == 0 and bool(done)):
+        with trace.span("ba.iter"):
+            graph.replay()
+        n_run += 1
+    hist[n_run:] = cost
+    return (params, cost, hist, live_at[:n_run] if trace.ON else None,
+            n_run)
+
+
+# ---------------------------------------------------------------------------
 # the solver
 # ---------------------------------------------------------------------------
 
@@ -381,55 +547,13 @@ def _bundle_adjust(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
                                  pp_, k_ if K else None, X_, tracks, m, cfg,
                                  group)
 
-    params = (R, t, f, pp, k, X)
-    cost0 = total_cost(params)
-    cost = cost0
-    lam = torch.tensor(cfg.lambda_init, dtype=dtype, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    hist = []
-    live_at_start = []  # while the tracer records: ~done as each began
-    for it in range(cfg.max_iterations):
-        if it and it % _SYNC_EVERY == 0 and bool(done):
-            break
-        with trace.span("ba.iter"):
-            dc, dX = step(params, lam)
-            cand = apply(params, dc, dX)
-            new_cost = total_cost(cand)
-            better = new_cost < cost
-            live = ~done
-            if trace.ON:
-                live_at_start.append(live)
-            accept = better & live
-            params = tuple(torch.where(accept, a, b)
-                           for a, b in zip(cand, params))
-            rel_dec = (cost - new_cost) / torch.clamp(cost, min=_EPS)
-            cost = torch.where(accept, new_cost, cost)
-            lam_new = torch.clamp(
-                torch.where(better, lam * cfg.lambda_down,
-                            lam * cfg.lambda_up),
-                cfg.lambda_min, cfg.lambda_max)
-            converged = ((better & (rel_dec < cfg.function_tolerance))
-                         | (~better & (lam_new >= cfg.lambda_max)))
-            lam = torch.where(done, lam, lam_new)
-            done = done | converged
-            hist.append(cost)
-    if trace.ON:
-        # the iterations run, and those begun before `done` was set (the
-        # rest ran only until the host's next read of the flag)
-        trace.count("ba.iters_run", len(hist))
-        if live_at_start:
-            trace.count("ba.iters_useful", torch.stack(live_at_start))
-    # the iterations the loop did not run report the final cost, as the
-    # while-loop's untouched history does
-    hist += [cost] * (cfg.max_iterations - len(hist))
-
+    params, info = lm_loop(step, apply, total_cost, (R, t, f, pp, k, X),
+                           cfg, group)
     R_, t_, f_, pp_, k_, X_ = params
     intr = torch.zeros((S, 3, 3), dtype=dtype, device=dev)
     intr[:, 0, 0] = f_
     intr[:, 1, 1] = f_
     intr[:, :2, 2] = pp_
     intr[:, 2, 2] = 1.0
-    info = {"cost": torch.stack(hist) if hist else cost0.new_zeros(0),
-            "initial_cost": cost0, "final_cost": cost}
     return (torch.cat([R_, t_[..., None]], -1), intr, k_ if K else None, X_,
             info)

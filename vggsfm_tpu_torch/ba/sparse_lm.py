@@ -15,9 +15,10 @@ applies U x - W V⁻¹ Wᵀ x through two gather / segment passes. Padding
 observations (weight 0) are inert.
 
 As in ba/lm.py, by design: the Jacobians are closed form (the JAX solver
-takes `jax.jacfwd` of a per-observation residual), and the LM loop runs
-`max_iterations` masked steps under a device `done` flag that the host
-reads every `_SYNC_EVERY` iterations. On the GPU the segment sums are
+takes `jax.jacfwd` of a per-observation residual), and the LM loop is
+ba/lm.py's `lm_loop`: `max_iterations` masked steps under a device `done`
+flag that the host reads every `_SYNC_EVERY` iterations, replayed from a
+CUDA graph after the first on a CUDA device. On the GPU the segment sums are
 atomic adds, so their f32 rounding may vary from run to run.
 """
 
@@ -29,13 +30,12 @@ import torch
 
 from vggsfm_tpu_torch.ba.lm import (
     _BEHIND_PENALTY_SQ,
-    _EPS,
-    _SYNC_EVERY,
     BAConfig,
     _inv3x3,
     _jacobians,
     _project_rotated,
     _robust_sqrt_weight,
+    lm_loop,
 )
 from vggsfm_tpu_torch.geometry.rotations import axis_angle_to_matrix
 from vggsfm_tpu_torch.ops.eigh import eigh_small
@@ -259,53 +259,13 @@ def _bundle_adjust_sparse(extrinsics: torch.Tensor,
                 f_ * torch.exp(dc[:, 6]), pp_, k_ + dc[:, 7:] if K else k_,
                 X_ + dX)
 
-    params = (R0, t0, f0, pp0, k0, X0)
-    cost0 = total_cost(params)
-    cost = cost0
-    lam = torch.tensor(cfg.lambda_init, dtype=dtype, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    hist = []
-    live_at_start = []  # while the tracer records: ~done as each began
-    for it in range(cfg.max_iterations):
-        if it and it % _SYNC_EVERY == 0 and bool(done):
-            break
-        with trace.span("ba.iter"):
-            dc, dX = step(params, lam)
-            cand = apply(params, dc, dX)
-            new_cost = total_cost(cand)
-            better = new_cost < cost
-            live = ~done
-            if trace.ON:
-                live_at_start.append(live)
-            accept = better & live
-            params = tuple(torch.where(accept, a, b)
-                           for a, b in zip(cand, params))
-            rel_dec = (cost - new_cost) / torch.clamp(cost, min=_EPS)
-            cost = torch.where(accept, new_cost, cost)
-            lam_new = torch.clamp(
-                torch.where(better, lam * cfg.lambda_down,
-                            lam * cfg.lambda_up),
-                cfg.lambda_min, cfg.lambda_max)
-            converged = ((better & (rel_dec < cfg.function_tolerance))
-                         | (~better & (lam_new >= cfg.lambda_max)))
-            lam = torch.where(done, lam, lam_new)
-            done = done | converged
-            hist.append(cost)
-    if trace.ON:
-        # the iterations run, and those begun before `done` was set (the
-        # rest ran only until the host's next read of the flag)
-        trace.count("ba.iters_run", len(hist))
-        if live_at_start:
-            trace.count("ba.iters_useful", torch.stack(live_at_start))
-    hist += [cost] * (cfg.max_iterations - len(hist))
-
+    params, info = lm_loop(step, apply, total_cost,
+                           (R0, t0, f0, pp0, k0, X0), cfg, group)
     R_, t_, f_, pp_, k_, X_ = params
     intr = torch.zeros((S, 3, 3), dtype=dtype, device=dev)
     intr[:, 0, 0] = f_
     intr[:, 1, 1] = f_
     intr[:, :2, 2] = pp_
     intr[:, 2, 2] = 1.0
-    info = {"cost": torch.stack(hist) if hist else cost0.new_zeros(0),
-            "initial_cost": cost0, "final_cost": cost}
     return (torch.cat([R_, t_[..., None]], -1), intr, k_ if K else None, X_,
             info)
