@@ -5,7 +5,8 @@ scene, or with `--seconds` after that long), and every number the
 configuration compares: read for the
 program, and with `--modes` for the control too (the reference itself in
 lower-precision products against the float32 reference); with `--fault`
-for the program with that fault planted underneath (benchmark/faults.py).
+for the program with that fault planted underneath (the family's
+`FAULTS`, benchmark/faults.py).
 
     python3 benchmark/control.py --workload <cell> --seeds 11,12,13 \
         [--modes fp8,tf32] [--fault ba_unchanged] [--seconds 60]
@@ -20,7 +21,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -42,20 +42,21 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    from benchmark.faults import FAULTS, Patches, plant
+    from benchmark.faults import Patches, plant
+    from benchmark.harness import family
     from benchmark.harness.cell import load_cell, neural_readings, \
         run_loaded
 
     cfg, wl = load_cell(args.workload)
+    install = (family.of(cfg).entry("FAULTS", args.fault)[0]
+               if args.fault else None)
     modes = tuple(m for m in args.modes.split(",") if m)
     device = torch.device("cuda", 0)
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         patches = Patches()
-        if args.fault:
-            cls = importlib.import_module(
-                f"benchmark.pipelines.{cfg['pipeline']}").Pipeline
-            plant(cls, FAULTS[args.fault][0], patches)
+        if install is not None:
+            plant(family.pipeline_module(cfg).Pipeline, install, patches)
         try:
             rec = run_loaded(cfg, wl, seed, args.seconds, False, device,
                              t0)

@@ -14,7 +14,6 @@ frames_per_s is all the frames completed over all the time they took.
 from __future__ import annotations
 
 import gc
-import importlib
 import json
 import os
 import sys
@@ -23,14 +22,13 @@ import time
 import numpy as np
 import torch
 
-from benchmark.harness import checks, trace
+from benchmark.harness import checks, family, trace
 from benchmark.harness.auc import pose_auc
 from benchmark.harness.flops import count_calls
-from benchmark.pipelines.common import expect_weights_free
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# files a run writes (the ALIKED checkpoint), inside the checkout and
-# listed in .gitignore
+# files a run writes (a checkpoint a pipeline hands the program),
+# inside the checkout and listed in .gitignore
 WORK_DIR = os.path.join(HERE, "_work")
 
 
@@ -65,9 +63,8 @@ def run_loaded(cfg: dict, wl: dict, seed: int, seconds: float,
     """`run_cell` on a configuration and a workload as loaded. The record
     keeps the checked scene's frames and what the program produced for it
     (``frames``, ``sample``), for readings in other precisions."""
-    pipe = importlib.import_module(
-        f"benchmark.pipelines.{cfg['pipeline']}").Pipeline(
-            cfg, wl, device, WORK_DIR)
+    fam = family.of(cfg)
+    pipe = family.pipeline_module(cfg).Pipeline(cfg, wl, device, WORK_DIR)
     warm_frames = pipe.warm_up()
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
@@ -76,7 +73,7 @@ def run_loaded(cfg: dict, wl: dict, seed: int, seconds: float,
     _stamp(f"set-up {setup_s:.3f} s")
 
     # the window's order of the scenes; the check samples the first (which
-    # every window completes) and one of its tracker calls
+    # every window completes) and which of its calls the recorder keeps
     order = [int(j) for j in
              1 + _rng(seed, 1).permutation(len(pipe.scenes) - 1)]
     sample_at = order[0]
@@ -118,7 +115,7 @@ def run_loaded(cfg: dict, wl: dict, seed: int, seconds: float,
             "auc5": pose_auc(res["extrinsics"].float(),
                              torch.as_tensor(s["extrinsics"])),
             "solve": pipe.solve_checks(res, s)})
-    failed = sum(1 for s in scenes_rec if not s["solve"]["valid_tracks"])
+    failed = sum(1 for s in scenes_rec if fam.scene_failed(s["solve"]))
     record = {"setup_s": setup_s, "window_s": window_s, "peak_bytes": peak,
               "scenes": scenes_rec, "config": cfg, "workload": wl}
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -128,17 +125,17 @@ def run_loaded(cfg: dict, wl: dict, seed: int, seconds: float,
                         "memory_peak_bytes": int(peak)}
 
     if traced:
-        record["trace"] = _profile(pipe, warm_frames, sync)
+        record["trace"] = _profile(pipe, warm_frames, sync, fam)
         record["device"].update(busy_s=record["trace"]["busy_s"],
                                 window_s=record["trace"]["window_s"])
         record["breakdown"] = {"device_ops": record["trace"]["top_ops"],
                                "idle_gaps": record["trace"]["idle_gaps"]}
 
-    max_pts = pipe.opts["max_query_pts"]
+    max_pts = fam.max_query_pts(pipe)
     sampled = next(r for r in results if "sample" in r)
     frames = pipe.scenes[sampled["index"]]["images"]
     sample = sampled["sample"]
-    expect_weights_free(pipe.opts, sample)
+    fam.check_sample(pipe, sample)
     # the program's state goes before the reference runs
     rec.close()
     del results, sampled, pipe, rec
@@ -146,10 +143,10 @@ def run_loaded(cfg: dict, wl: dict, seed: int, seconds: float,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     readings = neural_readings(cfg, max_pts, device, frames, sample)
-    solve = {name: checks.over_window(
+    solve = {name: fam.over_window(
                  name, [s["solve"][name] for s in scenes_rec], side)
              for name, (side, _) in cfg["checks"].items()
-             if name not in checks.NEURAL}
+             if name not in fam.NEURAL}
     record["readings"] = {**{k: {"f32": v} for k, v in solve.items()},
                           **readings}
     record["checks"] = _check(cfg, {**solve, **{
@@ -157,13 +154,14 @@ def run_loaded(cfg: dict, wl: dict, seed: int, seconds: float,
     record["correct"] = all(c["ok"] for c in record["checks"])
     record.update(frames=frames, sample=sample, max_pts=max_pts)
     if traced:
-        record["model_flops"] = count_calls(device, census)
+        record["model_flops"] = count_calls(device, census,
+                                            fam.census_modules)
     record["attempted"] = len(scenes_rec)
     record["failed"] = failed
     return record
 
 
-def _profile(pipe, frames: int, sync) -> dict:
+def _profile(pipe, frames: int, sync, fam) -> dict:
     """The warm-up again, under torch.profiler, with the kernel ranges
     on."""
     rec = pipe.recorder
@@ -177,7 +175,7 @@ def _profile(pipe, frames: int, sync) -> dict:
         sync()
         wall = time.perf_counter() - ts
     rec.kernel_ranges(False)
-    out = trace.reduce(prof, wall, frames, rec.kernel_calls)
+    out = trace.reduce(prof, wall, frames, rec.kernel_calls, fam.KERNELS)
     rec.kernel_calls = []
     return out
 
@@ -185,26 +183,32 @@ def _profile(pipe, frames: int, sync) -> dict:
 def neural_readings(cfg: dict, max_pts: int, device, frames, sample: dict,
                     modes=("f32",)) -> dict:
     """name -> mode -> reading, for every neural number the configuration
-    compares (`checks.readings`)."""
-    want = [n for n in cfg["checks"] if n in checks.NEURAL]
-    ref = checks.reference_models(
-        cfg, device,
-        sorted({checks.NEURAL[n][3] for n in want} - {None}))
+    compares (`checks.readings` of the family's `NEURAL`); `max_pts` is
+    the family's `max_query_pts` of the run."""
+    fam = family.of(cfg)
+    want = [n for n in cfg["checks"] if n in fam.NEURAL]
+    ref = fam.reference_models(
+        cfg, device, sorted({fam.NEURAL[n][3] for n in want} - {None}))
     x = torch.as_tensor(frames).to(device)
     out = {}
     for name in want:
-        kw = {"max_pts": max_pts} if name == "query_miss" else {}
-        out[name] = checks.readings(name, ref, x, sample, modes, **kw)
+        out[name] = checks.readings(fam.NEURAL[name], ref, x, sample, modes,
+                                    **fam.want_kwargs(name, max_pts))
     return out
 
 
 def _check(cfg: dict, values: dict) -> list:
-    """Every number the configuration compares, beside its limit."""
+    """Every number the configuration compares, beside its limit and
+    what it reads (a neural check's from the family's `NEURAL`, a solve
+    number's from its `SCENE_READS`)."""
+    fam = family.of(cfg)
     out = []
     for name, (side, limit) in cfg["checks"].items():
         v = values[name]
+        reads = (fam.NEURAL[name][4] if name in fam.NEURAL
+                 else fam.entry("SCENE_READS", name))
         out.append({"name": name, "value": v, "side": side, "limit": limit,
-                    "reads": checks.READS[name],
+                    "reads": reads,
                     "ok": limit is not None and checks.passes(v, side,
                                                               limit)})
     return out

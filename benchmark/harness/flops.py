@@ -1,6 +1,7 @@
 """The model FLOPs of a window, counted by the benchmark itself: every
 neural call the recorder's census saw (module, shapes, options), each
-distinct one run once through the float32 reference under
+distinct one run once through the float32 reference module the family
+names for it (its `census_modules`) under
 `torch.utils.flop_counter.FlopCounterMode` on inputs of the same shapes.
 The counter sees the reference's matrix products, convolutions and
 attention; the solvers' elementwise work is not model FLOPs and is not
@@ -12,20 +13,6 @@ from collections import Counter
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
-
-
-def _modules(device) -> dict:
-    from benchmark.reference.aliked import ALIKED
-    from benchmark.reference.camera import CameraPredictor
-    from benchmark.reference.tracker import TrackerPredictor
-
-    with torch.device(device):
-        tr = TrackerPredictor(dtype=torch.float32).eval()
-        cam = CameraPredictor(dtype=torch.float32).eval()
-        aliked = ALIKED(dtype=torch.float32).eval()
-    return {"coarse": tr.coarse_predictor, "fine": tr.fine_predictor,
-            "coarse_fnet": tr.coarse_fnet, "fine_fnet": tr.fine_fnet,
-            "camera": cam, "dino": cam.backbone, "aliked": aliked}
 
 
 def _build(sig, device, gen):
@@ -43,12 +30,15 @@ def _build(sig, device, gen):
 
 
 @torch.inference_mode()
-def count_calls(device, census: list) -> float:
-    """The summed FLOPs of every call in `census`."""
-    mods = _modules(device)
+def count_calls(device, census: list, census_modules) -> float:
+    """The summed FLOPs of every call in `census`, each through its
+    module of `census_modules(device)` (census name -> module)."""
+    mods = census_modules(device)
     gen = torch.Generator(device=device).manual_seed(0)
     total = 0.0
     for (name, (args, kwargs)), n in Counter(census).items():
+        if name not in mods:
+            raise LookupError(f"no census module for {name!r}")
         a = _build(args, device, gen)
         k = {key: _build(v, device, gen) for key, v in kwargs}
         with FlopCounterMode(display=False) as counter:

@@ -27,6 +27,7 @@ from collections import defaultdict
 
 import torch
 
+from benchmark.harness import family
 from benchmark.harness.record import RANGE_PREFIX as KERNEL_PREFIX
 
 PREFIX = "vggsfm."
@@ -68,9 +69,8 @@ def profile_unit(cfg: dict, wl: dict, platform: str) -> dict | None:
         else torch.device("cpu")
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
-    pipe = importlib.import_module(
-        f"benchmark.pipelines.{cfg['pipeline']}").Pipeline(
-            cfg, {**wl, "pool": 1}, device, WORK_DIR)
+    pipe = family.pipeline_module(cfg).Pipeline(
+        cfg, {**wl, "pool": 1}, device, WORK_DIR)
     try:
         pipe.warm_up()
         sync()

@@ -2,7 +2,7 @@
 per-layer metrics read: device busy time, device operations, the top
 operations and idle gaps, and the device time of each kernel range the
 recorder opened (the kernels launched inside it, whatever implements
-them), against its work from the frozen formulas in `work`.
+them), against the bound its family gives the call's kind.
 """
 
 from __future__ import annotations
@@ -12,7 +12,6 @@ from collections import defaultdict
 
 import torch
 
-from benchmark.harness import work
 from benchmark.harness.record import RANGE_PREFIX
 
 
@@ -34,12 +33,14 @@ def _union(intervals):
     return merged
 
 
-def reduce(prof, wall_s: float, frames: int, kernel_calls: list) -> dict:
+def reduce(prof, wall_s: float, frames: int, kernel_calls: list,
+           kernels: dict) -> dict:
     """The summary of a profile of `frames` frames that took `wall_s`
     seconds of host time: ``busy_s``, ``window_s``, ``device_ops``,
     ``frames``, ``top_ops`` and ``idle_gaps`` (name, seconds), and
-    ``kernels``: per kind, the summed bound and device seconds of its
-    calls (`work.bound_s`)."""
+    ``kernels``: per roofline group, the summed bound and device seconds
+    of its calls. `kernels` is the family's `KERNELS`: each call's kind
+    gives its group and its bound; a kind it lacks raises."""
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.profiler.kineto_results.events()
     # the device's operations; the ranges' own device-side spans are not
@@ -88,18 +89,20 @@ def reduce(prof, wall_s: float, frames: int, kernel_calls: list) -> dict:
         i = bisect.bisect_right(span_starts, t) - 1
         if i >= 0 and t <= spans[i][1]:
             dev_ns[spans[i][2]] += e.duration_ns()
-    kernels = defaultdict(lambda: {"bound_s": 0.0, "device_s": 0.0,
-                                   "calls": 0})
+    groups = defaultdict(lambda: {"bound_s": 0.0, "device_s": 0.0,
+                                  "calls": 0})
     for idx, (kind, shapes) in enumerate(kernel_calls):
+        if kind not in kernels:
+            raise LookupError(f"kernel kind {kind!r} is not registered")
+        _, _, group, _, bound_s = kernels[kind]
         if idx not in dev_ns:
             continue
-        group = "corr" if kind == "corr" else "former"
-        k = kernels[group]
-        k["bound_s"] += work.bound_s(kind, shapes)
+        k = groups[group]
+        k["bound_s"] += bound_s(shapes)
         k["device_s"] += dev_ns[idx] / 1e9
         k["calls"] += 1
     return {"busy_s": busy_ns / 1e9, "window_s": wall_s,
             "device_ops": len(dev), "frames": frames,
             "top_ops": [[n, v / 1e9] for n, v in top_ops],
             "idle_gaps": [[n, v / 1e9] for n, v in idle_gaps],
-            "kernels": dict(kernels)}
+            "kernels": dict(groups)}

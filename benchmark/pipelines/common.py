@@ -77,24 +77,12 @@ def make_runner(cfg: dict, wl: dict, device, work_dir: str):
                               state_dict=tracker, camera_state_dict=camera)
         runner.camera  # built now, in set-up
     # the port has no public option for this mode: the flag its tracker
-    # stages read (`expect_weights_free` checks that they did)
+    # stages read (the family's `check_sample` checks that they did)
     if not hasattr(runner, "_weights_loaded"):
         raise RuntimeError("VGGSfMRunner has no `_weights_loaded`: the "
                            "weights-free tracker mode cannot be set")
     runner._weights_loaded = False
     return runner, opts
-
-
-def expect_weights_free(opts: dict, sample: dict) -> None:
-    """Raise unless the sampled coarse tracker call ran in the mode
-    `make_runner` set: visibility from cycle consistency wherever the
-    tracks start from matching."""
-    want = opts.get("matching_init", True)
-    got = sample["coarse"]["kwargs"].get("matching_vis")
-    if got is not want:
-        raise RuntimeError(f"the coarse tracker ran with matching_vis="
-                           f"{got!r}, not {want!r}: the runner no longer "
-                           f"reads `_weights_loaded`")
 
 
 def render_pool(wl: dict, image_size: int, device) -> list:

@@ -5,8 +5,11 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.harness.record import Recorder
+from benchmark.families import vggsfm
 from benchmark.pipelines.common import make_runner, render_pool
+
+# the family's declarations the harness reads (benchmark/README.md)
+FAMILY = vggsfm
 
 
 class Pipeline:
@@ -16,8 +19,8 @@ class Pipeline:
         self.cfg, self.wl, self.device = cfg, wl, device
         self.runner, self.opts = make_runner(cfg, wl, device,
                                              work_dir)
-        self.recorder = Recorder(self.runner,
-                                 aliked="aliked" in self.opts["query_method"])
+        self.recorder = vggsfm.VGGSfMRecorder(
+            self.runner, aliked="aliked" in self.opts["query_method"])
         self.scenes = render_pool(wl, self.opts["img_size"], device)
         if self.opts["comple_nonvis"]:
             # the re-query's last round may add SuperPoint; its model is

@@ -6,8 +6,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmark.harness.record import Recorder
+from benchmark.families import vggsfm
 from benchmark.pipelines.common import make_runner, render_pool
+
+# the family's declarations the harness reads (benchmark/README.md)
+FAMILY = vggsfm
 
 
 class Pipeline:
@@ -22,9 +25,9 @@ class Pipeline:
         self.runner = runner
         import vggsfm_tpu_torch.video.runner as video_runner
 
-        self.recorder = Recorder(runner, aliked="aliked"
-                                 in self.opts["query_method"],
-                                 queries_in=video_runner)
+        self.recorder = vggsfm.VGGSfMRecorder(
+            runner, aliked="aliked" in self.opts["query_method"],
+            queries_in=video_runner)
         self._maps: list = []
         # the final map (observations) of each sequence, for the check:
         # the run returns no observations, and the map reaches only the

@@ -11,7 +11,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-CELLS = ["sparse-8q-4096", "video-144f-512", "sparse-3q-4096"]
+CELLS = ["sparse-8q-4096", "video-144f-512", "sparse-3q-4096",
+         "imc-bag25"]
 
 
 def _need_card():
