@@ -29,7 +29,11 @@ prints no result line):
    5 levels, C = 128; fine: 4096 x 8 track-frames, 3 levels of 31^2
    patches, C = 32, flat; bf16), each with its device time, bound and
    share, the plain version's time and the previous route's (the full-map
-   product + windows; the flat full map from an f32 copy);
+   product + windows; the flat full map from an f32 copy); then VGGT's
+   long-sequence attention kernel against its plain route at 48 frames x
+   16 heads x 1374 tokens, 16 heads x 65,952 and ragged lengths (each
+   element within 2 bf16 ulps of the plain route's terms, the whole
+   within 1e-2 relative RMS), both main-path shapes timed;
 3. slice: the full-width tracker through VGGSfMRunner.predict_tracks:
    8 frames at 1024 px, 4096 query points, one query frame, 6 coarse
    iterations and fine tracking, bf16, seeded random weights with a
@@ -237,6 +241,11 @@ prints no result line):
    each stage's FLOPs, synchronized seconds and MFU against the card's
    dense bf16 peak; a small tracker and camera call counted on the card
    (kernels, by formula) and on the CPU (plain versions): equal by op.
+16. vggt: `VGGTRunner.reconstruct` (VGGT-1B feed-forward, published
+   widths, seeded weights) on 48 frames at 518 px, warm, then timed:
+   finite cameras and depth, the kept points min(100,000, pixels with
+   confidence >= 5), launch counts exact (72 of the attention kernel, no
+   other kernel of the port), stage times and peak memory.
 
 Then one JSON line describing each kernel, the card line again, and as the
 last line {"ok": true, "device": {...}}. Needs a CUDA GPU and the repo
@@ -836,6 +845,116 @@ def corr_kernel_phase(report: dict, extra: dict) -> None:
                       "previous_route_device_ms": prev_dev_ms,
                       "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
         del levels, coords, feats, out, pyr, args
+
+
+def attention_kernel_phase(report: dict) -> None:
+    """The long-sequence attention kernel (csrc/flash_attn.cu, VGGT's
+    frame and global blocks) against its plain route at the main path's
+    shapes, 48 frames x 16 heads of 1374 tokens and 16 heads of 65,952,
+    and two ragged lengths: each output within 2 bf16 ulps of the plain
+    route's terms, and the whole within 1e-2 relative RMS of it (at L =
+    65,952 an output's terms are as large as its RMS, so the first bound
+    alone would let a kernel drop 1% of the keys; the second reads ~0.1
+    then); both shapes of the main path timed."""
+    import torch
+
+    from vggsfm_tpu_torch.ops import _build
+    from vggsfm_tpu_torch.ops.attention import attention_plain, \
+        flash_attention
+
+    _build.load_library()
+    for kname, props in ptxas_report(_build.build_info["vf_former"]["log"]):
+        if "attn_kernel" in kname and "vfa" in kname:
+            print(f"  ptxas: {kname}: {props}")
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(BH, L):
+        return [torch.randn(BH, L, 64, generator=g, device="cuda")
+                .bfloat16() for _ in range(3)]
+
+    for B, H, L in ((48, 16, 1374), (1, 16, 65952), (1, 2, 65), (3, 1, 1)):
+        q, k, v = inputs(B * H, L)
+        out = flash_attention(q, k, v, B).float()
+        want = attention_plain(q, k, v, B).float()
+        mag = attention_plain(q, k, v.abs(), B).float()
+        frac = float(((out - want).abs()
+                      / (2.0 ** -7 * (want.abs() + mag) + 1e-6)).max())
+        rms = float((out - want).double().square().mean().sqrt()
+                    / want.double().square().mean().sqrt())
+        ok = frac <= 1 and rms <= 1e-2
+        print(f"kernel flash_attention [B={B} H={H} L={L}] err/bound="
+              f"{frac:.3f} rel_rms={rms:.2e} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"flash_attention at B={B} H={H} L={L}: "
+                                 f"err/bound {frac}, relative RMS {rms}")
+        del q, k, v, out, want, mag
+    entry = report["flash_attention"]
+    for B, H, L in ((48, 16, 1374), (1, 16, 65952)):
+        q, k, v = inputs(B * H, L)
+        ms = cuda_time_ms(lambda: flash_attention(q, k, v, B), 5)
+        scores = B * H * L * L
+        bms = 1e3 * max(4 * 64 * scores / 989e12, scores / 3.9e12,
+                        8 * B * H * L * 64 / 3.35e12)
+        print(f"kernel flash_attention [B={B} H={H} L={L}] ms={ms:.3f} "
+              f"bound_ms={bms:.3f} share={100 * bms / ms:.1f}% "
+              f"TFLOP/s={4 * 64 * scores / ms / 1e9:.1f}", flush=True)
+        entry.update(ms=ms, bound_ms=bms, bound_by="operations")
+        del q, k, v
+
+
+def vggt_phase(report: dict, launches: dict) -> None:
+    """VGGT-1B's feed-forward reconstruction at its published widths:
+    `VGGTRunner.reconstruct` on 48 frames at 518 px (a two-plane render),
+    seeded weights, warm, then timed with the kernels' launch counts into
+    `launches`: the attention kernel carries every attention of the
+    aggregator (24 DINOv2 and 24 frame blocks over 48 frames x 16 heads
+    of 1374 tokens, 24 global blocks over 16 heads of 65,952) and no other
+    kernel of the port runs. Gates: finite cameras and depth, the kept
+    points min(100,000, pixels with confidence >= 5)."""
+    import torch
+
+    from vggsfm_tpu_torch.ops import fused_mlp as fm
+    from vggsfm_tpu_torch.utils.synth import render_two_plane_scene
+    from vggsfm_tpu_torch.vggt import VGGTRunner
+
+    S, size = 48, 518
+    scene = render_two_plane_scene(S, size, 11, baseline=0.03,
+                                   fg_half_extent_frac=0.5)
+    images = torch.as_tensor(scene["images"]).cuda()
+    t0 = time.perf_counter()
+    runner = VGGTRunner(device="cuda")
+    init_s = time.perf_counter() - t0
+    runner.reconstruct(images)  # first run: cuBLAS/cuDNN set-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = runner.reconstruct(images)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.update(fm.launch_counts)
+    fm.reset_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    for key in ("extrinsics", "intrinsics", "depth", "depth_conf",
+                "points3d"):
+        assert bool(torch.isfinite(out[key]).all()), f"{key} not finite"
+    cand = int((out["depth_conf"] >= runner.cfg.conf_thres).sum())
+    kept = out["points3d"].shape[0]
+    assert kept == min(runner.cfg.max_points, cand) > 0, (kept, cand)
+    want = {name: 0 for name in fm.launch_counts}
+    want["flash_attention"] = 3 * 24
+    assert launches == want, f"launch counts {launches}, expected {want}"
+    print(f"vggt: {S} frames at {size} px in {wall:.3f} s "
+          f"({S / wall:.2f} frames/s; weights {init_s:.1f} s); stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in out["timings"].items())
+          + f"; peak {peak_gb:.2f} GiB; points {kept} of {cand}; "
+          f"launches {launches}", flush=True)
+    report["vggt"] = {"frames": S, "size": size, "wall_s": wall,
+                      "timings": out["timings"], "peak_gib": peak_gb,
+                      "points": kept, "candidates": cand}
 
 
 # ------------------------------------------------------------- phase 3
@@ -4177,6 +4296,10 @@ def main() -> int:
             "name": "corr_sample_pallas_smallc", "route": "cuda",
             "source": "vggsfm_tpu_torch/csrc/corr_sample.cu",
             "replaces": "vggsfm_tpu/ops/corr_pallas.py:255"},
+        "flash_attention": {
+            "name": "flash_attention", "route": "cuda",
+            "source": "vggsfm_tpu_torch/csrc/flash_attn.cu",
+            "replaces": None},
     }
     try:
         from vggsfm_tpu_torch.ops import _build
@@ -4215,12 +4338,13 @@ def main() -> int:
     # by main-path slice
     launches = {"tracker": {}, "camera": {}, "few_tracks": {},
                 "reconstruct": {}, "export": {}, "dense": {}, "video": {},
-                "imc": {}, "multi": {}}
+                "imc": {}, "multi": {}, "vggt": {}}
     shared = {}
     for phase, fn in (
             ("kernels", lambda: kernel_phase(report, extra)),
             ("correlation kernels",
              lambda: corr_kernel_phase(report, extra)),
+            ("attention kernel", lambda: attention_kernel_phase(report)),
             ("slice", lambda: slice_phase(extra, launches["tracker"])),
             ("agree", lambda: agree_phase(extra)),
             ("camera", lambda: camera_phase(extra, launches["camera"])),
@@ -4239,7 +4363,8 @@ def main() -> int:
                                           shared)),
             ("imc", lambda: imc_phase(extra, launches["imc"])),
             ("multi-device",
-             lambda: multi_device_phase(extra, launches["multi"], shared))):
+             lambda: multi_device_phase(extra, launches["multi"], shared)),
+            ("vggt", lambda: vggt_phase(extra, launches["vggt"]))):
         t0 = time.perf_counter()
         try:
             fn()

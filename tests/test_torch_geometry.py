@@ -33,7 +33,7 @@ from vggsfm_tpu_torch.ops import eigh as teigh
 from vggsfm_tpu_torch.ops import polynomial as tpoly
 from vggsfm_tpu_torch.ops import svd3 as tsvd
 from vggsfm_tpu_torch.ops import triangulation as ttri
-from vggsfm_tpu_torch.utils.precision import f32_matmuls
+from vggsfm_tpu_torch.utils.precision import default_precision, f32_matmuls
 
 
 
@@ -101,6 +101,31 @@ def test_f32_matmuls_turns_tf32_off_and_restores():
                 torch.backends.cudnn.allow_tf32 = True
                 raise ValueError  # restored on the way out as well
         assert torch.backends.cudnn.allow_tf32 is False
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def test_default_precision_pins_pytorch_defaults_and_restores():
+    """VGGT's heads: full-f32 products and TF32 convolutions whatever the
+    caller set (a benchmark's reference turns both off for its process)."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+
+    @default_precision
+    def inside():
+        with f32_matmuls():  # nested: the geometry inside a head
+            nested = torch.backends.cudnn.allow_tf32
+        return (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32, nested)
+
+    try:
+        for on in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = on
+            torch.backends.cudnn.allow_tf32 = on
+            assert inside() == (False, True, False)
+            assert (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32) == (on, on)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags

@@ -178,3 +178,53 @@ def extri_intri_to_pose_encoding(extrinsics: torch.Tensor,
     focal_norm = (focal_px * 2.0 / scale).clamp(min_focal_length,
                                                 max_focal_length)
     return torch.cat([T_pt, quat, focal_norm[..., None]], dim=-1)
+
+
+# ------------------------------------------------------------------ VGGT
+
+def quat_xyzw_to_matrix(quat: torch.Tensor) -> torch.Tensor:
+    """(..., 4) quaternions (x, y, z, w), not necessarily unit, -> (..., 3,
+    3) rotations (VGGT's `quat_to_mat`)."""
+    i, j, k, r = quat.unbind(-1)
+    two_s = 2.0 / (quat * quat).sum(-1)
+    o = torch.stack([
+        1 - two_s * (j * j + k * k), two_s * (i * j - k * r),
+        two_s * (i * k + j * r),
+        two_s * (i * j + k * r), 1 - two_s * (i * i + k * k),
+        two_s * (j * k - i * r),
+        two_s * (i * k - j * r), two_s * (j * k + i * r),
+        1 - two_s * (i * i + j * j)], dim=-1)
+    return o.reshape(*quat.shape[:-1], 3, 3)
+
+
+def fov_pose_to_extri_intri(pose_encoding: torch.Tensor, image_size_hw):
+    """Decode (..., 9) ``absT_quaR_FoV`` encodings (T, quaternion xyzw,
+    FoV h, FoV w; VGGT's camera head) to OpenCV cameras: extrinsics
+    [R | T] (..., 3, 4) and intrinsics (..., 3, 3) with f_y = (H / 2) /
+    tan(fov_h / 2), f_x = (W / 2) / tan(fov_w / 2) and the principal point
+    at the image centre."""
+    H, W = (float(v) for v in image_size_hw)
+    R = quat_xyzw_to_matrix(pose_encoding[..., 3:7])
+    extrinsics = torch.cat([R, pose_encoding[..., :3, None]], dim=-1)
+    fy = (H / 2.0) / torch.tan(pose_encoding[..., 7] / 2.0)
+    fx = (W / 2.0) / torch.tan(pose_encoding[..., 8] / 2.0)
+    pp = pose_encoding.new_tensor([W / 2.0, H / 2.0]).expand(
+        *pose_encoding.shape[:-1], 2)
+    return extrinsics, build_intrinsics(torch.stack([fx, fy], -1), pp)
+
+
+def unproject_depth(depth: torch.Tensor, extrinsics: torch.Tensor,
+                    intrinsics: torch.Tensor) -> torch.Tensor:
+    """World points (S, H, W, 3) of every pixel (u, v) of (S, H, W) depth
+    maps: R^T (depth K^-1 [u, v, 1]^T - T), elementwise in f32."""
+    S, H, W = depth.shape
+    v, u = torch.meshgrid(torch.arange(H, device=depth.device),
+                          torch.arange(W, device=depth.device),
+                          indexing="ij")
+    K = intrinsics[:, None, None]
+    x = (u - K[..., 0, 2]) * depth / K[..., 0, 0]
+    y = (v - K[..., 1, 2]) * depth / K[..., 1, 1]
+    cam = torch.stack([x, y, depth], dim=-1) - extrinsics[:, None, None, :,
+                                                          3]
+    R = extrinsics[:, None, None, :, :3]
+    return (R * cam[..., :, None]).sum(-2)

@@ -15,6 +15,11 @@ DepthAnythingV2 encoders (``pretrained.*``).
 The dtype flow is the JAX module's: everything runs in ``dtype`` (bf16 on
 the main path) with f32 LayerNorm statistics and softmax; the LayerScale
 products are f32 and rounded to the token dtype before each residual add.
+
+Attention materializes each head's (L, L) scores in f32 unless the model is
+built with ``flash=True`` (VGGT's ViT-L, models/vggt.py): its bf16 heads of
+64 then go through the long-sequence kernel (ops/attention.py), the
+probabilities rounded to bf16 before their product with v.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 
 from vggsfm_tpu_torch.models.layers import cast_weight
 from vggsfm_tpu_torch.models.sampling import interpolate_bilinear
+from vggsfm_tpu_torch.ops import attention as attn_ops
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
@@ -40,9 +46,10 @@ def layer_norm(x: torch.Tensor, layer: nn.LayerNorm, dtype) -> torch.Tensor:
 
 
 class DinoAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
+                 flash: bool = False):
         super().__init__()
-        self.num_heads, self.dtype = num_heads, dtype
+        self.num_heads, self.dtype, self.flash = num_heads, dtype, flash
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
@@ -52,6 +59,10 @@ class DinoAttention(nn.Module):
         D = C // H
         qkv = linear(x, self.qkv, self.dtype)
         q, k, v = qkv.reshape(B, L, 3, H, D).permute(2, 0, 3, 1, 4)
+        if self.flash:
+            q, k, v = (t.reshape(B * H, L, D).contiguous() for t in (q, k, v))
+            return linear(attn_ops.flash_attention(q, k, v, B), self.proj,
+                          self.dtype)
         logits = (q @ k.transpose(-1, -2)).float()
         attn = torch.softmax(logits / D ** 0.5, dim=-1).to(v.dtype)
         out = (attn @ v).transpose(1, 2).reshape(B, L, C)
@@ -73,11 +84,11 @@ class DinoMlp(nn.Module):
 
 class DinoBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, flash: bool = False):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = DinoAttention(dim, num_heads, dtype)
+        self.attn = DinoAttention(dim, num_heads, dtype, flash)
         self.ls1 = LayerScale(dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = DinoMlp(dim, int(dim * mlp_ratio))
@@ -105,7 +116,7 @@ class DinoVisionTransformer(nn.Module):
     def __init__(self, embed_dim: int = 768, depth: int = 12,
                  num_heads: int = 12, patch_size: int = 14,
                  num_register_tokens: int = 4, pos_embed_size: int = 37,
-                 dtype=torch.float32):
+                 dtype=torch.float32, flash: bool = False):
         super().__init__()
         self.patch_size, self.pos_embed_size = patch_size, pos_embed_size
         self.num_register_tokens, self.dtype = num_register_tokens, dtype
@@ -118,7 +129,8 @@ class DinoVisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(
             torch.zeros(1, 1 + pos_embed_size ** 2, embed_dim))
         self.blocks = nn.ModuleList(
-            DinoBlock(embed_dim, num_heads, dtype=dtype) for _ in range(depth))
+            DinoBlock(embed_dim, num_heads, dtype=dtype, flash=flash)
+            for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
     def forward(self, images, return_layers: tuple = ()):

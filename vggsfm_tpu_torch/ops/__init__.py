@@ -7,7 +7,9 @@ kernel, and nowhere else.
 
 launch_counts = {"fused_transformer_block": 0, "fused_ln_mlp": 0,
                  "fused_ln_attn": 0, "corr_sample_pallas": 0,
-                 "corr_sample_pallas_smallc": 0}
+                 "corr_sample_pallas_smallc": 0,
+                 # no TPU kernel: the long-sequence attention (attention.py)
+                 "flash_attention": 0}
 
 
 def reset_launch_counts() -> None:

@@ -27,10 +27,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-CUDA_SOURCES = ("fused_former.cu", "corr_sample.cu")
-HEADERS = ("fused_former.cuh", "corr_sample.cuh")
-EMU_SOURCES = ("host_emu.cpp",)
-EMU_HEADERS = ("host_emu.h", "fused_former.cuh", "corr_sample.cuh")
+CUDA_SOURCES = ("fused_former.cu", "corr_sample.cu", "flash_attn.cu")
+HEADERS = ("fused_former.cuh", "corr_sample.cuh", "flash_attn.cuh")
+EMU_SOURCES = ("host_emu.cpp", "attn_emu.cpp")
+EMU_HEADERS = ("host_emu.h", "fused_former.cuh", "corr_sample.cuh",
+               "flash_attn.cuh")
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -132,6 +133,9 @@ def _declare(lib, with_stream: bool):
     lib.vf_corr_variant.restype = ci
     lib.vf_corr_smem_bytes.argtypes = [ci] * 3
     lib.vf_corr_smem_bytes.restype = ctypes.c_size_t
+    lib.vf_flash_attn.argtypes = [vp] * 4 + [ci] * 4 + [ctypes.c_float] \
+        + tail
+    lib.vf_flash_attn.restype = ci
     return lib
 
 
@@ -162,3 +166,4 @@ def load_host_emulation():
                           lambda out: host_emu_command(out, cxx))
             _libs["emu"] = _declare(ctypes.CDLL(path), with_stream=False)
         return _libs["emu"]
+
