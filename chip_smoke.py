@@ -31,9 +31,10 @@ prints no result line):
    share, the plain version's time and the previous route's (the full-map
    product + windows; the flat full map from an f32 copy); then VGGT's
    long-sequence attention kernel against its plain route at 48 frames x
-   16 heads x 1374 tokens, 16 heads x 65,952 and ragged lengths (each
-   element within 2 bf16 ulps of the plain route's terms, the whole
-   within 1e-2 relative RMS), both main-path shapes timed;
+   16 heads x 1374 tokens, 16 heads x 65,952 and ragged lengths at its
+   128-row and 128-key tile edges (each element within 2 bf16 ulps of
+   the plain route's terms, the whole within 1e-2 relative RMS), both
+   main-path shapes timed beside PyTorch's SDPA (`library_ms`);
 3. slice: the full-width tracker through VGGSfMRunner.predict_tracks:
    8 frames at 1024 px, 4096 query points, one query frame, 6 coarse
    iterations and fine tracking, bf16, seeded random weights with a
@@ -851,28 +852,37 @@ def attention_kernel_phase(report: dict) -> None:
     """The long-sequence attention kernel (csrc/flash_attn.cu, VGGT's
     frame and global blocks) against its plain route at the main path's
     shapes, 48 frames x 16 heads of 1374 tokens and 16 heads of 65,952,
-    and two ragged lengths: each output within 2 bf16 ulps of the plain
+    and ragged lengths at the kernel's 128-row and 128-key tile edges and
+    past its 4-stage ring: each output within 2 bf16 ulps of the plain
     route's terms, and the whole within 1e-2 relative RMS of it (at L =
     65,952 an output's terms are as large as its RMS, so the first bound
     alone would let a kernel drop 1% of the keys; the second reads ~0.1
-    then); both shapes of the main path timed."""
+    then); both shapes of the main path timed, with PyTorch's SDPA on the
+    same inputs as the yardstick (`library_ms`; the port never calls
+    it)."""
     import torch
+    import torch.nn.functional as F
 
     from vggsfm_tpu_torch.ops import _build
     from vggsfm_tpu_torch.ops.attention import attention_plain, \
         flash_attention
 
     _build.load_library()
-    for kname, props in ptxas_report(_build.build_info["vf_former"]["log"]):
+    log = _build.build_info["vf_former"]["log"]
+    for kname, props in ptxas_report(log):
         if "attn_kernel" in kname and "vfa" in kname:
             print(f"  ptxas: {kname}: {props}")
+    for line in log.splitlines():
+        if "flash_attn" in line or "wgmma" in line or "setmaxnreg" in line:
+            print(f"  nvcc: {line.strip()}")
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def inputs(BH, L):
         return [torch.randn(BH, L, 64, generator=g, device="cuda")
                 .bfloat16() for _ in range(3)]
 
-    for B, H, L in ((48, 16, 1374), (1, 16, 65952), (1, 2, 65), (3, 1, 1)):
+    for B, H, L in ((48, 16, 1374), (1, 16, 65952), (1, 2, 65), (3, 1, 1),
+                    (1, 2, 127), (1, 2, 129), (2, 3, 257), (1, 2, 700)):
         q, k, v = inputs(B * H, L)
         out = flash_attention(q, k, v, B).float()
         want = attention_plain(q, k, v, B).float()
@@ -893,14 +903,19 @@ def attention_kernel_phase(report: dict) -> None:
     for B, H, L in ((48, 16, 1374), (1, 16, 65952)):
         q, k, v = inputs(B * H, L)
         ms = cuda_time_ms(lambda: flash_attention(q, k, v, B), 5)
+        qs, ks, vs = (t.view(B, H, L, 64) for t in (q, k, v))
+        lib_ms = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(qs, ks, vs), 5)
         scores = B * H * L * L
         bms = 1e3 * max(4 * 64 * scores / 989e12, scores / 3.9e12,
                         8 * B * H * L * 64 / 3.35e12)
         print(f"kernel flash_attention [B={B} H={H} L={L}] ms={ms:.3f} "
               f"bound_ms={bms:.3f} share={100 * bms / ms:.1f}% "
-              f"TFLOP/s={4 * 64 * scores / ms / 1e9:.1f}", flush=True)
-        entry.update(ms=ms, bound_ms=bms, bound_by="operations")
-        del q, k, v
+              f"TFLOP/s={4 * 64 * scores / ms / 1e9:.1f} "
+              f"library_ms={lib_ms:.3f} (SDPA)", flush=True)
+        entry.update(ms=ms, bound_ms=bms, bound_by="operations",
+                     library_ms=lib_ms)
+        del q, k, v, qs, ks, vs
 
 
 def vggt_phase(report: dict, launches: dict) -> None:

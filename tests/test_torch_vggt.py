@@ -49,7 +49,7 @@ TINY = dict(img_size=56, embed_dim=64, depth=2, num_heads=4,
             taps=(0, 0, 1, 1))
 TOL = 1e-4  # relative RMS: float32 on both sides, sums in other orders
 # kernel against plain route, relative RMS: both round the probabilities to
-# bf16 in the same blocks of 64 keys and the output to bf16 (~2e-3 apart at
+# bf16 in the same blocks of 128 keys and the output to bf16 (~2e-3 apart at
 # most); a kernel that dropped 1% of the keys would read ~0.1
 KERNEL_RMS = 1e-2
 
@@ -178,13 +178,15 @@ def _ulps(q, k, v, B, want):
     return 2.0 ** -7 * (want.abs() + mag) + 1e-6
 
 
-@pytest.mark.parametrize("L", [1, 5, 130])
+@pytest.mark.parametrize("L", [1, 5, 127, 129, 130, 257, 641])
 def test_emulated_kernel_matches_plain_route(L):
     """The CUDA source's device code, built for the CPU against
     csrc/host_emu.h, on ragged lengths, against the plain route: both
     round the probabilities to bf16 against the same running max, in
-    blocks of 64 keys; the scores and row sums are summed in other
-    orders (`_ulps`)."""
+    blocks of 128 keys; the scores and row sums are summed in other
+    orders (`_ulps`). The lengths straddle the kernel's 128-row query and
+    128-key tiles; 641 takes six key tiles through the four-stage ring,
+    so its stages are handed back and refilled."""
     lib = _build.load_host_emulation()
     g = torch.Generator().manual_seed(L)
     B, H = 2, 2
@@ -198,6 +200,18 @@ def test_emulated_kernel_matches_plain_route(L):
     assert bool(((out.float() - want).abs() <= _ulps(q, k, v, B, want))
                 .all())
     assert rel(out, want) <= KERNEL_RMS
+
+
+def test_attention_ablation_variants_apply():
+    """Each variant of vggsfm_tpu_torch/tools/ablate_attn.py (the attention
+    kernel with one part changed, timed on the card) finds its text in
+    flash_attn.cuh exactly once, and changes it."""
+    from vggsfm_tpu_torch.tools import ablate_attn
+
+    with open(os.path.join(_build.CSRC, "flash_attn.cuh")) as f:
+        base = f.read()
+    for name, subs in ablate_attn.VARIANTS.items():
+        assert (ablate_attn.variant_source(base, subs) == base) == (not subs)
 
 
 def test_rope2d_is_the_explicit_rotation():
@@ -298,7 +312,8 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,L", [(2, 16, 1374), (1, 1, 65952),
                                    (1, 16, 65952), (1, 2, 1), (3, 1, 63),
-                                   (1, 3, 65), (2, 2, 1000)])
+                                   (1, 3, 65), (2, 2, 1000), (1, 2, 127),
+                                   (1, 2, 129), (2, 3, 257)])
 def test_kernel_matches_plain_route(cuda, B, H, L):
     g = torch.Generator(device=cuda).manual_seed(L)
     q, k, v = (torch.randn(B * H, L, 64, generator=g, device=cuda)

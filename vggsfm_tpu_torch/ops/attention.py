@@ -11,8 +11,8 @@ take 278 GB a layer.
     kernels by ops/_build.py `load_library`) for CUDA tensors, or raises if the kernel does not
     take the inputs; CPU tensors, and only those, take `attention_plain`.
   * `attention_plain` is the same function in plain PyTorch, with the
-    same signature: the keys in the kernel's blocks of 64 with an online
-    softmax (so it never holds more than (L, 64) scores a head), f32
+    same signature: the keys in the kernel's tiles of 128 with an online
+    softmax (so it never holds more than (L, 128) scores a head), f32
     statistics, the probabilities rounded to v's dtype before their product
     with v, as the kernel rounds them to bf16.
   * Each launch counts in `launch_counts["flash_attention"]`; while the
@@ -34,7 +34,7 @@ from vggsfm_tpu_torch.ops import _build, launch_counts
 from vggsfm_tpu_torch.utils import trace
 
 HEAD_DIM = 64
-KEY_BLOCK = 64  # keys per block of the plain route: the kernel's tile
+KEY_BLOCK = 128  # keys per block of the plain route: the kernel's tile
 
 
 def _count(BH: int, L: int) -> None:
