@@ -14,8 +14,11 @@ prints no result line):
 2. kernels: each hand-written kernel on the card at the main path's
    shapes (the tracker's, the few-track path's 896 rows, the camera
    trunk's and cross-attention tails', and the attention probe's), in
-   bf16 and f32, against its plain PyTorch version on the same inputs
-   (each element within the stated bound: `err_over_bound`), with both
+   bf16 and in f32 (an f32 block as its two halves, `fused_ln_attn` then
+   `fused_ln_mlp`, as AttnBlock runs it; f32 `ln_mlp` at C <= 384, the
+   wider f32 tails being plain), against its plain PyTorch version on
+   the same inputs (each element within the stated bound:
+   `err_over_bound`), with both
    times and the bound, the achieved TFLOP/s, the share of the bound, the
    weight bytes the blocks read from L2 under each kernel's design, and
    `composed_ms`: the same function from the fewest stock calls
@@ -237,11 +240,7 @@ prints no result line):
    vggsfm_tpu_torch.video_demo --distributed-ba 2 --dist-backend gloo` as
    two ranks (VGGSFM_COORDINATOR / VGGSFM_NUM_PROCESSES /
    VGGSFM_PROCESS_ID) on the 48-frame folder, each writing its own model:
-   every frame registered, the two models byte-equal. (d) the FLOP ledger
-   (`utils/mfu.py`) on one matched `sparse_reconstruct` with SYNC_TIMING:
-   each stage's FLOPs, synchronized seconds and MFU against the card's
-   dense bf16 peak; a small tracker and camera call counted on the card
-   (kernels, by formula) and on the CPU (plain versions): equal by op.
+   every frame registered, the two models byte-equal.
 16. vggt: `VGGTRunner.reconstruct` (VGGT-1B feed-forward, published
    widths, seeded weights) on 48 frames at 518 px, warm, then timed:
    finite cameras and depth, the kept points min(100,000, pixels with
@@ -428,26 +427,34 @@ def weight_traffic(kind, R, L, C, M, dtype, lib, sms):
     """(what, bytes) of the weight matrices the blocks of one launch read
     from L2, biases left out: every whole-row block reads every weight
     once; on the wide MLP path each 128-row tile reads w1 and w2 once
-    (fc1 and fc2 tiles together); in the attention half's GEMMs each row
-    tile (cc_tile: 64 or 16 rows) reads its product's weight once."""
+    (fc1 and fc2 tiles together); in the CUDA-core GEMMs (the attention
+    half's, and f32 ln_mlp's) each row tile (cc_tile: 64 or 16 rows)
+    reads its product's weight once. An f32 block runs as the two
+    halves: their sum."""
     import torch
 
-    from vggsfm_tpu_torch.ops import fused_mlp as fm
-
     tsize = torch.tensor([], dtype=dtype).element_size()
+    f32 = dtype == torch.float32
+
+    def cc(N, K):  # row tiles of an (R x N) product, bytes of its weight
+        return -(-R // (16 * (lib.vf_cc_tile(R, N, sms) // 10))), \
+            tsize * N * K
+
+    if kind == "block" and f32:
+        wa, ba = weight_traffic("attn", R, L, C, M, dtype, lib, sms)
+        wm, bm = weight_traffic("mlp", R, L, C, M, dtype, lib, sms)
+        return f"attention half {wa} + MLP tail {wm}", ba + bm
     if kind == "block":
         n, w = -(-R // ((64 // L) * L)), tsize * (4 * C * C + 2 * C * M)
         return f"{n} blocks x {w} B", n * w
-    if kind == "attn":
-        rq = 16 * (lib.vf_cc_tile(R, 3 * C, sms) // 10)
-        ro = 16 * (lib.vf_cc_tile(R, C, sms) // 10)
-        nq, no = -(-R // rq), -(-R // ro)
-        wq, wo = tsize * 3 * C * C, tsize * C * C
-        return (f"q|k|v {nq} row tiles x {wq} B + out-projection {no} x "
+    if kind == "attn" or f32:
+        (nq, wq), (no, wo) = ((cc(3 * C, C), cc(C, C)) if kind == "attn"
+                              else (cc(M, C), cc(C, M)))
+        first, second = (("q|k|v", "out-projection") if kind == "attn"
+                         else ("fc1", "fc2"))
+        return (f"{first} {nq} row tiles x {wq} B + {second} {no} x "
                 f"{wo} B", nq * wq + no * wo)
-    wide = lib.vf_ln_mlp_kernels(1 if dtype == torch.bfloat16 else 0, C,
-                                 M) == fm.WIDE_MLP_KERNELS
-    rows = 128 if wide else 64 if C <= 384 else 32
+    rows = 128 if C > 384 else 64
     n, w = -(-R // rows), tsize * 2 * C * M
     return f"{n} {rows}-row tiles x {w} B", n * w
 
@@ -529,6 +536,8 @@ def kernel_phase(report: dict, extra: dict) -> None:
         dn = str(dtype).split(".")[1]
         tsize = torch.tensor([], dtype=dtype).element_size()
         for label, kind, R, L, C, H in cases:
+            if dtype == torch.float32 and kind == "mlp" and C > fm.MAX_C:
+                continue  # f32 tails wider than 384 run plain
             M = 4 * C
             x = (rnd(R, C, scale=1.0) * 1.5).to("cuda", dtype)
             if kind == "block":
@@ -537,6 +546,9 @@ def kernel_phase(report: dict, extra: dict) -> None:
                 ws = [w.to("cuda", dtype) for w in ws]
 
                 def kern():
+                    if dtype == torch.float32:  # the two halves
+                        return fm.fused_ln_mlp(
+                            fm.fused_ln_attn(x, *ws[:4], L, H), *ws[4:])
                     return fm.fused_transformer_block(x, *ws, L, H)
 
                 def plain():
@@ -1066,7 +1078,7 @@ def slice_phase(report: dict, launches: dict) -> None:
     # iterations x 4 time blocks and one flat correlation launch (3 levels)
     want = {"fused_transformer_block": 72 + 24, "fused_ln_mlp": 72,
             "fused_ln_attn": 0, "corr_sample_pallas": 6,
-            "corr_sample_pallas_smallc": 6}
+            "corr_sample_pallas_smallc": 6, "flash_attention": 0}
     assert launches == want, f"launch counts {launches}, expected {want}"
 
     s = torch.arange(S, dtype=torch.float32)[:, None, None]
@@ -1231,7 +1243,7 @@ def camera_phase(report: dict, launches: dict) -> None:
     want = {"fused_transformer_block": 0,
             "fused_ln_mlp": 8 * fm.WIDE_MLP_KERNELS,
             "fused_ln_attn": 16 * fm.ATTN_KERNELS, "corr_sample_pallas": 0,
-            "corr_sample_pallas_smallc": 0}
+            "corr_sample_pallas_smallc": 0, "flash_attention": 0}
     assert launches == want, f"launch counts {launches}, expected {want}"
 
     print(f"camera: query frames {qi}; stages "
@@ -1383,7 +1395,8 @@ def few_tracks_phase(report: dict, launches: dict) -> None:
     want = {"fused_transformer_block": S * (72 + 24) + fine_iters * 4,
             "fused_ln_mlp": S * 72, "fused_ln_attn": 0,
             "corr_sample_pallas": S * 6,
-            "corr_sample_pallas_smallc": S * 6 + fine_iters}
+            "corr_sample_pallas_smallc": S * 6 + fine_iters,
+            "flash_attention": 0}
     assert launches == want, f"launch counts {launches}, expected {want}"
     print(f"few tracks: tracks {tuple(tracks.shape)} from {S} query frames "
           f"x {K} ALIKED points ({n_valid} valid) in {wall:.3f} s (first "
@@ -1997,7 +2010,8 @@ def reconstruct_phase(report: dict, launches: dict) -> None:
     want = {"fused_transformer_block": 72 * nc + 24 * nf,
             "fused_ln_mlp": 72 * nc + 8 * fm.WIDE_MLP_KERNELS,
             "fused_ln_attn": 16 * fm.ATTN_KERNELS,
-            "corr_sample_pallas": 6 * nc, "corr_sample_pallas_smallc": 6 * nf}
+            "corr_sample_pallas": 6 * nc, "corr_sample_pallas_smallc": 6 * nf,
+            "flash_attention": 0}
     assert nc >= 8 and nf >= nc, calls
     assert launches == want, f"launch counts {launches}, expected {want}"
 
@@ -2306,7 +2320,7 @@ def export_phase(report: dict, launches: dict, shared: dict) -> None:
     # each 72 blocks, 72 cross-attention tails and 6 correlation launches
     want_x = {"fused_transformer_block": 72 * nx, "fused_ln_mlp": 72 * nx,
               "fused_ln_attn": 0, "corr_sample_pallas": 6 * nx,
-              "corr_sample_pallas_smallc": 0}
+              "corr_sample_pallas_smallc": 0, "flash_attention": 0}
     assert nx == S, calls
     assert extra_launches == want_x, \
         f"extra-point launches {extra_launches}, expected {want_x}"
@@ -2314,7 +2328,8 @@ def export_phase(report: dict, launches: dict, shared: dict) -> None:
     want = {"fused_transformer_block": 72 * nc + 24 * nf,
             "fused_ln_mlp": 72 * nc + 8 * fm.WIDE_MLP_KERNELS,
             "fused_ln_attn": 16 * fm.ATTN_KERNELS,
-            "corr_sample_pallas": 6 * nc, "corr_sample_pallas_smallc": 6 * nf}
+            "corr_sample_pallas": 6 * nc, "corr_sample_pallas_smallc": 6 * nf,
+            "flash_attention": 0}
     assert nc >= runner.cfg.query_frame_num and nf >= nc, calls
     assert rest == want, f"launch counts {rest}, expected {want}"
 
@@ -3179,7 +3194,7 @@ def expected_launches(n_coarse: int, n_fine: int, n_camera: int) -> dict:
             * n_camera,
             "fused_ln_attn": 16 * fm.ATTN_KERNELS * n_camera,
             "corr_sample_pallas": 6 * n_coarse,
-            "corr_sample_pallas_smallc": 6 * n_fine}
+            "corr_sample_pallas_smallc": 6 * n_fine, "flash_attention": 0}
 
 
 def video_phase(report: dict, launches: dict, shared: dict) -> None:
@@ -3989,8 +4004,7 @@ def multi_device_phase(report: dict, launches: dict, shared: dict) -> None:
     on a one-rank NCCL group, then on two gloo ranks sharing cuda:0, with
     the gates; (b) `distributed_bundle_adjust` on the two ranks against
     the plain solver on the card at the video run's joint-BA size; (c) the
-    video CLI as two ranks with --distributed-ba 2; (d) the FLOP ledger
-    (`multi_device_ledger`)."""
+    video CLI as two ranks with --distributed-ba 2."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4132,7 +4146,6 @@ def multi_device_phase(report: dict, launches: dict, shared: dict) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     video_distributed_cli(report)
-    multi_device_ledger(report)
 
 
 def video_distributed_cli(report: dict) -> None:
@@ -4187,89 +4200,6 @@ def video_distributed_cli(report: dict) -> None:
     if not ok:
         raise AssertionError("the --distributed-ba ranks' models differ or "
                              "a frame is missing")
-
-
-def multi_device_ledger(report: dict) -> None:
-    """(d) The FLOP ledger (utils/mfu.py) on one matched `sparse_reconstruct`
-    with SYNC_TIMING: a warm call, a counted call (FLOPs of each stage's
-    first call at its shapes), a timed call; per stage its calls, FLOPs,
-    synchronized seconds and MFU against the card's dense bf16 peak. Then a
-    small tracker and camera call counted on the card (kernels) and on
-    the CPU (their plain versions): the counts equal."""
-    import copy
-
-    import torch
-
-    from vggsfm_tpu_torch.runner import VGGSfMRunner
-    from vggsfm_tpu_torch.utils import mfu
-    from vggsfm_tpu_torch.utils.synth import render_two_plane_scene
-
-    scene = render_two_plane_scene(8, 1024)
-    runner = VGGSfMRunner(matched_config(), device="cuda")
-    runner.sparse_reconstruct(scene["images"])  # warm
-    mfu.reset()
-    t0 = time.perf_counter()
-    with mfu.sync_timing():
-        runner.sparse_reconstruct(scene["images"])  # counted
-        count_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        runner.sparse_reconstruct(scene["images"])  # timed
-        timed_s = time.perf_counter() - t0
-    rep = mfu.flops_report()
-    peak = mfu.peak_flops()
-    print(f"multi-device (d): the FLOP ledger on the matched "
-          f"sparse_reconstruct, SYNC_TIMING on: the counted call "
-          f"{count_s:.2f} s, the timed call {timed_s:.2f} s; peak "
-          f"{peak} FLOP/s (dense bf16, H100 SXM5 at 700 W; "
-          f"{torch.cuda.get_device_name(0)})", flush=True)
-    for name, row in sorted(rep.items()):
-        print(f"  {name:16s} calls {row['calls']:3d}  FLOPs/call "
-              f"{row['flops_per_call'] or 0:.4e}  timed "
-              f"{row.get('device_s', 0.0):.4f} s over "
-              f"{row.get('timed_calls', 0)} calls  MFU "
-              f"{row.get('mfu', float('nan')):.4f}", flush=True)
-    report["multi_ledger"] = {"stages": rep, "counted_s": count_s,
-                              "timed_s": timed_s}
-    assert rep and all(r["flops_per_call"] is not None
-                       for r in rep.values()), rep
-    mfu.reset()
-
-    # the same small calls on the card (kernels) and on the CPU (plain)
-    g = torch.Generator().manual_seed(5)
-    images = torch.rand(1, 2, 256, 256, 3, generator=g)
-    qp = torch.rand(1, 64, 2, generator=g) * 200 + 28
-    counts = {}
-    for dev in ("cuda", "cpu"):
-        tr = copy.deepcopy(runner.tracker).to(dev)
-        cam = copy.deepcopy(runner.camera).to(dev)
-        im, q = images.to(dev), qp.to(dev)
-
-        def small():
-            with torch.inference_mode():
-                fmaps = tr.process_images_to_fmaps(im)
-                preds, _ = tr.coarse_predictor(q, fmaps, iters=2,
-                                               down_ratio=2)
-                cam(im, iters=1)
-                return preds
-
-        counts[dev] = mfu.count_flops(small)[1]
-        del tr, cam
-    equal = counts["cuda"] == counts["cpu"]
-    kernels = {k: v for k, v in counts["cuda"].items()
-               if k.startswith("kernel:")}
-    print(f"multi-device (d): a small tracker + camera call counted on the "
-          f"card (kernels) and on the CPU (plain versions): "
-          f"{sum(counts['cuda'].values()):.4e} and "
-          f"{sum(counts['cpu'].values()):.4e} FLOPs, equal by op: {equal}; "
-          f"the kernels' share {kernels} {'ok' if equal else 'FAIL'}",
-          flush=True)
-    report["multi_ledger"]["small_call"] = counts
-    if not equal:
-        diff = {k: (counts["cuda"].get(k), counts["cpu"].get(k))
-                for k in set(counts["cuda"]) | set(counts["cpu"])
-                if counts["cuda"].get(k) != counts["cpu"].get(k)}
-        raise AssertionError(f"the card's and the CPU's counts differ: "
-                             f"{diff}")
 
 
 def main() -> int:
@@ -4335,11 +4265,11 @@ def main() -> int:
             raise AssertionError(f"correlation kernels spill: {spills}")
         lib = _build.load_library()
         print(f"  dynamic shared memory per block: block kernel bf16 C=384 "
-              f"H=8 L=8 {lib.vf_block_smem_bytes(384, 8, 8, 1536, 2)} B, "
-              f"L=64 {lib.vf_block_smem_bytes(384, 8, 64, 1536, 2)} B; "
-              f"ln_mlp bf16 C=384 {lib.vf_ln_mlp_smem_bytes(384, 1536, 2)} "
+              f"H=8 L=8 {lib.vf_block_smem_bytes(384, 8, 8)} B, "
+              f"L=64 {lib.vf_block_smem_bytes(384, 8, 64)} B; "
+              f"ln_mlp bf16 C=384 {lib.vf_ln_mlp_smem_bytes(384)} "
               f"B; wide ln_mlp GEMM bf16 C=768 "
-              f"{lib.vf_ln_mlp_smem_bytes(768, 3072, 2)} B; ln_attn C=768 "
+              f"{lib.vf_ln_mlp_smem_bytes(768)} B; ln_attn C=768 "
               f"H=8 L=8 f32 {lib.vf_attn_smem_bytes(768, 8, 8, 4)} B; "
               f"correlation C=128 r=4 {lib.vf_corr_smem_bytes(128, 4, 0)} "
               f"B, flat C=32 r=3 {lib.vf_corr_smem_bytes(32, 3, 1)} B (of "

@@ -94,14 +94,19 @@ def test_kernel_gates_at_the_camera_shapes():
     C = 768, 8 heads of 96) take fused_ln_attn, the cross-attention tails
     (bf16, C = 768) fused_ln_mlp; the self-attention blocks (L = 577) and
     the f32 768-wide MLP tails stay plain; the whole-block kernel takes
-    none of them. The tracker's shapes keep their kernels."""
+    none of them. The tracker's shapes keep their kernels (the f32 tail at
+    384 too; an f32 block runs as its halves)."""
+    bf, f32 = torch.bfloat16, torch.float32
     assert tfm.ln_attn_takes(768, 8, 8)
-    assert not tfm.block_kernel_takes(768, 8, 8)
+    assert not tfm.block_route_takes(bf, 768, 8, 8, 3072)
+    assert not tfm.block_route_takes(f32, 768, 8, 8, 3072)
     assert not tfm.ln_attn_takes(768, 577, 8)
-    assert tfm.mlp_route_takes(torch.bfloat16, 768)
-    assert not tfm.mlp_route_takes(torch.float32, 768)
-    assert tfm.block_kernel_takes(384, 8, 8)
-    assert tfm.mlp_route_takes(torch.float32, 384)
+    assert tfm.mlp_route_takes(bf, 768, 3072)
+    assert not tfm.mlp_route_takes(f32, 768, 3072)
+    assert tfm.block_route_takes(bf, 384, 8, 8, 1536)
+    assert tfm.mlp_route_takes(bf, 384, 1536)
+    assert not tfm.block_route_takes(f32, 384, 8, 8, 1536)
+    assert tfm.mlp_route_takes(f32, 384, 1536)
 
 
 def test_trunk_block_dtype_flow(rng, monkeypatch):

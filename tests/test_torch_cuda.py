@@ -50,12 +50,18 @@ def _w(gen, *shape, dtype, scale=0.05):
                                         (9, 100, 256), (1, 77, 128),
                                         (8, 112, 384)])
 def test_block_kernel_matches_plain(gen, dtype, L, tracks, C):
-    """(8, 112, 384): the few-track path's 896 rows (14 blocks)."""
+    """(8, 112, 384): the few-track path's 896 rows (14 blocks). The
+    kernel takes bf16 only: f32 raises and launches nothing."""
     M = 4 * C
     x = _w(gen, tracks * L, C, dtype=dtype, scale=1.5)
     ws = [_w(gen, *s, dtype=dtype) for s in (
         (3 * C, C), (3 * C,), (C, C), (C,), (M, C), (M,), (C, M), (C,))]
     n0 = fm.launch_counts["fused_transformer_block"]
+    if dtype == torch.float32:
+        with pytest.raises(ValueError):
+            fm.fused_transformer_block(x, *ws, L, 8)
+        assert fm.launch_counts["fused_transformer_block"] == n0
+        return
     out = fm.fused_transformer_block(x, *ws, L, 8)
     torch.cuda.synchronize()
     assert fm.launch_counts["fused_transformer_block"] == n0 + 1
@@ -67,17 +73,25 @@ def test_block_kernel_matches_plain(gen, dtype, L, tracks, C):
 @pytest.mark.parametrize("R,C", [(32768, 384), (37, 256), (32312, 768),
                                  (45, 768), (896, 384)])
 def test_ln_mlp_kernel_matches_plain(gen, dtype, R, C):
-    """bf16 at C = 768: the wide path's three kernels (the camera's
-    cross-attention tails at R = 32312)."""
+    """In bf16 at C = 768 the wide path's three kernels (the camera's
+    cross-attention tails at R = 32312); in f32 three kernels at C <= 384
+    (the LayerNorm pass, two CUDA-core GEMMs), while f32 rows wider than
+    384 raise and launch nothing."""
     M = 4 * C
     x = _w(gen, R, C, dtype=dtype, scale=1.5)
     ws = [_w(gen, *s, dtype=dtype) for s in ((M, C), (M,), (C, M), (C,))]
     n0 = fm.launch_counts["fused_ln_mlp"]
+    f32 = dtype == torch.float32
+    if f32 and C > fm.MAX_C:
+        with pytest.raises(ValueError):
+            fm.fused_ln_mlp(x, *ws)
+        assert fm.launch_counts["fused_ln_mlp"] == n0
+        return
     out = fm.fused_ln_mlp(x, *ws)
     torch.cuda.synchronize()
-    wide = dtype == torch.bfloat16 and C > fm.MAX_C
+    split = f32 or C > fm.MAX_C
     assert fm.launch_counts["fused_ln_mlp"] == n0 + (
-        fm.WIDE_MLP_KERNELS if wide else 1)
+        fm.WIDE_MLP_KERNELS if split else 1)
     ref = fm.fused_ln_mlp_ref(x, *ws)
     _assert_close(out, ref)
 
@@ -97,6 +111,33 @@ def test_ln_attn_kernel_matches_plain(gen, dtype, L, tracks, C, H):
     assert fm.launch_counts["fused_ln_attn"] == n0 + fm.ATTN_KERNELS
     ref = fm.fused_ln_attn_ref(x, *ws, L, H)
     _assert_close(out, ref)
+
+
+def test_f32_attn_block_matches_plain_block(gen):
+    """An f32 AttnBlock at C = 384 (the tracker's width) runs its two
+    halves: fused_ln_attn's kernels, then fused_ln_mlp's f32 kernels, and
+    nothing else of the fused former ops; it matches the plain block on
+    the same weights."""
+    from vggsfm_tpu_torch.models.layers import AttnBlock
+
+    L, tracks, C, H = 8, 64, 384, 8
+    blk = AttnBlock(C, H).cuda()
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(_w(gen, *p.shape, dtype=torch.float32))
+    x = _w(gen, tracks, L, C, dtype=torch.float32, scale=1.5)
+    n0 = dict(fm.launch_counts)
+    out = blk(x)
+    torch.cuda.synchronize()
+    assert fm.launch_counts["fused_ln_attn"] == n0["fused_ln_attn"] + \
+        fm.ATTN_KERNELS
+    assert fm.launch_counts["fused_ln_mlp"] == n0["fused_ln_mlp"] + \
+        fm.WIDE_MLP_KERNELS
+    assert sum(fm.launch_counts.values()) == sum(n0.values()) + \
+        fm.ATTN_KERNELS + fm.WIDE_MLP_KERNELS
+    ref = fm.fused_transformer_block_ref(
+        x.reshape(-1, C), *blk.attn.packed(), *blk.mlp.packed(), L, H)
+    _assert_close(out.reshape(-1, C), ref)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):

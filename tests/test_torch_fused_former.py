@@ -10,14 +10,17 @@
   csrc/host_emu.h, against the plain versions: the same arithmetic,
   indexing and barriers as on the card. f32 within 2e-5 (summation
   order); bf16 within one bf16 ulp of the O(1-4) outputs (0.03125), as a
-  different summation order may round the other way. The bf16
-  tensor-core shapes of the block kernel and of ln_mlp at C <= 384 run
-  the ring path (cp.async weight ring, ldmatrix, mma.sync), ln_mlp in
-  bf16 above C = 384 the wide path (LayerNorm pass, two mma.sync GEMMs on
-  a cp.async ring), fused_ln_attn its four kernels (LayerNorm pass, two
-  CUDA-core GEMMs on a cp.async ring, attention core); host_emu.h
-  emulates the warp-level PTX lane by lane; one warp of it is also
-  checked against a numpy product.
+  different summation order may round the other way. The block kernel
+  and ln_mlp at C <= 384 run the ring path (cp.async weight ring,
+  ldmatrix, mma.sync), ln_mlp above C = 384 the wide path (LayerNorm
+  pass, two mma.sync GEMMs on a cp.async ring), both in bf16 with the
+  head width and hidden size multiples of 16; ln_mlp in f32 the LayerNorm
+  pass and two CUDA-core GEMMs. The block kernel rejects f32, both reject
+  the shapes the tiles do not divide, and the layers run those on the
+  attention half's kernels or plain. fused_ln_attn runs its four kernels
+  (LayerNorm pass, two CUDA-core GEMMs on a cp.async ring, attention
+  core) in f32 and bf16; host_emu.h emulates the warp-level PTX lane by
+  lane; one warp of it is also checked against a numpy product.
 * The wrappers' device rule: CPU tensors take the plain version and
   count no launch. The kernels themselves on the card:
   tests/test_torch_cuda.py and chip_smoke.py.
@@ -117,27 +120,23 @@ def _emu_block(lib, x, params, L, H):
     return out
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,tracks,C,H", [(8, 17, 64, 4), (9, 7, 48, 3),
-                                          (64, 2, 64, 2), (1, 70, 32, 2),
-                                          (8, 5, 48, 6)])
-def test_emulated_block_kernel_matches_plain(rng, emu, dtype, L, tracks, C,
-                                             H):
-    """bf16 with 16-divisible head width and hidden size takes the
-    tensor-core (wmma) instantiation, head width 8 the CUDA-core one."""
-    x = torch.from_numpy(_mk(rng, tracks * L, C) * 20).to(dtype)
-    params = [p.to(dtype) for p in _torch_layout(_block_params(rng, C,
-                                                               4 * C))]
+                                          (64, 2, 64, 2), (1, 70, 32, 2)])
+def test_emulated_block_kernel_matches_plain(rng, emu, L, tracks, C, H):
+    """bf16 on the ring path: head widths 16 and 32, one- to eight-track
+    blocks (L = 64 down to 8), 63-row blocks (L = 9), L = 1."""
+    bf = torch.bfloat16
+    x = torch.from_numpy(_mk(rng, tracks * L, C) * 20).to(bf)
+    params = [p.to(bf) for p in _torch_layout(_block_params(rng, C, 4 * C))]
     out = _emu_block(emu, x, params, L, H)
     ref = tfm.fused_transformer_block_ref(x, *params, L, H)
-    tol = 2e-5 if dtype == torch.float32 else 0.03125
     np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
-                               atol=tol)
+                               atol=0.03125)
 
 
 def _emu_ln_mlp(lib, x, w1, b1, w2, b2):
-    """The kernels' ln_mlp with the wide path's scratch where it takes it
-    (as the wrapper allocates it)."""
+    """The kernels' ln_mlp with the three-kernel path's scratch where it
+    takes it (as the wrapper allocates it)."""
     R, C = x.shape
     M = w1.shape[0]
     out = torch.empty_like(x)
@@ -152,16 +151,15 @@ def _emu_ln_mlp(lib, x, w1, b1, w2, b2):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R,C,M", [(130, 64, 256), (5, 48, 100),
-                                   (40, 768, 64), (3, 400, 96),
-                                   (130, 768, 256)])
+@pytest.mark.parametrize("R,C,M", [(130, 64, 256), (40, 768, 64),
+                                   (3, 400, 96), (130, 768, 256)])
 def test_emulated_ln_mlp_kernel_matches_plain(rng, emu, dtype, R, C, M):
-    """M = 100 (not a multiple of 16) takes the CUDA-core instantiation in
-    bf16, M = 256 the tensor-core one; in f32 C = 768 and 400 take the
-    32-row tile of the rows wider than 384, in bf16 the wide path: at
-    (130, 768, 256) two 128-row tiles (the second 2 rows), two fc1 column
-    tiles, 24 slabs of fc1 and 8 of fc2 through the 4-stage ring, at
-    (3, 400, 96) a 16-deep last slab and ragged columns."""
+    """bf16: at C = 64 the ring path (a 2-row last tile), above C = 384
+    the wide path: at (130, 768, 256) two 128-row tiles (the second 2
+    rows), two fc1 column tiles, 24 slabs of fc1 and 8 of fc2 through the
+    4-stage ring, at (3, 400, 96) a 16-deep last slab and ragged
+    columns. f32: the LayerNorm pass and two CUDA-core GEMMs at every
+    width, with a last slab shorter than 64 values at M = 96."""
     x = torch.from_numpy(_mk(rng, R, C) * 20).to(dtype)
     w1, b1, w2, b2 = [torch.from_numpy(a).to(dtype) for a in (
         _mk(rng, M, C), _mk(rng, M), _mk(rng, C, M), _mk(rng, C))]
@@ -172,18 +170,82 @@ def test_emulated_ln_mlp_kernel_matches_plain(rng, emu, dtype, R, C, M):
                                atol=tol)
 
 
+# (kind, dtype, shape): what the block and ln_mlp kernels reject: the
+# block in f32 at any shape, either with a head width (8) or a hidden size
+# (100) that the 16-wide tiles do not divide; shapes are (L, tracks, C, H)
+# for the block, (R, C, M) for ln_mlp
+_PLAIN = [("block", torch.float32, s) for s in (
+    (8, 17, 64, 4), (9, 7, 48, 3), (64, 2, 64, 2), (1, 70, 32, 2),
+    (8, 5, 48, 6))] + [("block", torch.bfloat16, (8, 5, 48, 6))] + [
+    ("mlp", dt, (5, 48, 100)) for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("kind,dtype,shape", _PLAIN, ids=[
+    f"{k}-{str(d)[6:]}-" + "-".join(map(str, s)) for k, d, s in _PLAIN])
+def test_kernels_reject_what_runs_plain(rng, emu, kind, dtype, shape):
+    """The emulated C entry returns its reject code (-8: tiles that do not
+    divide, checked with the shape; else -100: not bf16), the route
+    predicate says no, and on the CPU the layer gives the plain function:
+    AttnBlock its two halves' plain versions, Mlp's tail
+    `fused_ln_mlp_ref`."""
+    from vggsfm_tpu_torch.models import layers as tlay
+
+    if kind == "block":
+        L, tracks, C, H = shape
+        M = 4 * C
+        code = -8 if (C // H) % 16 else -100
+        x = torch.from_numpy(_mk(rng, tracks * L, C) * 20).to(dtype)
+        params = [p.to(dtype) for p in _torch_layout(
+            _block_params(rng, C, M))]
+        out = torch.empty_like(x)
+        assert emu.vf_fused_block(_DT[dtype], x.data_ptr(),
+                                  *[p.data_ptr() for p in params],
+                                  out.data_ptr(), tracks * L, C, M, L,
+                                  H) == code
+        assert not tfm.block_route_takes(dtype, C, L, H, M)
+        blk = tlay.AttnBlock(C, H, dtype=dtype)
+        with torch.no_grad():
+            for p, v in zip((blk.attn.in_proj_weight, blk.attn.in_proj_bias,
+                             blk.attn.out_proj.weight, blk.attn.out_proj.bias,
+                             blk.mlp.fc1.weight, blk.mlp.fc1.bias,
+                             blk.mlp.fc2.weight, blk.mlp.fc2.bias), params):
+                p.copy_(v.float())
+        got = blk(x.view(tracks, L, C)).reshape(tracks * L, C)
+        half = tfm.fused_ln_attn_ref(x, *params[:4], L, H)
+        assert torch.equal(got, tfm.fused_ln_mlp_ref(half, *params[4:]))
+    else:
+        R, C, M = shape
+        code = -8 if M % 16 else -100
+        x = torch.from_numpy(_mk(rng, R, C) * 20).to(dtype)
+        ws = [torch.from_numpy(a).to(dtype) for a in (
+            _mk(rng, M, C), _mk(rng, M), _mk(rng, C, M), _mk(rng, C))]
+        out = torch.empty_like(x)
+        scratch = torch.empty(R * (C + M) * 2, dtype=torch.uint8)
+        assert emu.vf_fused_ln_mlp(_DT[dtype], x.data_ptr(),
+                                   *[w.data_ptr() for w in ws],
+                                   out.data_ptr(), scratch.data_ptr(), R, C,
+                                   M) == code
+        assert not tfm.mlp_route_takes(dtype, C, M)
+        mlp = tlay.Mlp(C, M, C, dtype=dtype)
+        with torch.no_grad():
+            for p, v in zip((mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
+                             mlp.fc2.bias), ws):
+                p.copy_(v.float())
+        assert torch.equal(mlp(x, ln_residual=True),
+                           tfm.fused_ln_mlp_ref(x, *ws))
+
+
 def test_ln_mlp_kernel_count_and_scratch(emu):
-    """The wide path (WIDE_MLP_KERNELS launches per call, xn and h as bf16
-    scratch) only in bf16 above C = 384 with M a multiple of 16; one
-    kernel and no scratch otherwise."""
+    """The three-kernel path (WIDE_MLP_KERNELS launches per call, xn and h
+    as scratch of the working dtype) in bf16 above C = 384 and in f32 at
+    every width; one kernel and no scratch in bf16 at C <= 384."""
     for dt in (torch.float32, torch.bfloat16):
-        for C, M in ((768, 3072), (400, 96), (384, 1536), (768, 100),
-                     (64, 256)):
-            wide = dt == torch.bfloat16 and C > 384 and M % 16 == 0
-            assert emu.vf_ln_mlp_kernels(_DT[dt], C, M) == (
-                tfm.WIDE_MLP_KERNELS if wide else 1)
+        for C, M in ((768, 3072), (400, 96), (384, 1536), (64, 256)):
+            split = dt == torch.float32 or C > 384
+            assert emu.vf_ln_mlp_kernels(_DT[dt], C) == (
+                tfm.WIDE_MLP_KERNELS if split else 1)
             assert emu.vf_ln_mlp_scratch_bytes(_DT[dt], 10, C, M) == (
-                10 * (C + M) * 2 if wide else 0)
+                10 * (C + M) * dt.itemsize if split else 0)
     assert tfm.WIDE_MLP_KERNELS == 3
 
 
@@ -333,16 +395,16 @@ def test_attention_gemm_tiles_spread_over_the_card(emu):
 
 def test_shared_memory_fits_a_hopper_block(emu):
     # 227 KB dynamic shared memory per block on sm_90
+    for C, H in ((384, 8), (256, 8)):
+        assert emu.vf_block_smem_bytes(C, H, 64) <= 232448
+        assert emu.vf_ln_mlp_smem_bytes(C) <= 232448
+    assert emu.vf_ln_mlp_smem_bytes(768) <= 232448
     for tsize in (2, 4):
-        for C, H in ((384, 8), (256, 8)):
-            assert emu.vf_block_smem_bytes(C, H, 64, 4 * C, tsize) <= 232448
-            assert emu.vf_ln_mlp_smem_bytes(C, 4 * C, tsize) <= 232448
-        assert emu.vf_ln_mlp_smem_bytes(768, 3072, tsize) <= 232448
         for H in (8, 6):  # head dims 96 and 128, the widest tile and L
             assert emu.vf_attn_smem_bytes(768, H, 64, tsize) <= 232448
     # the wide path's GEMM: 3 stages of 128 A rows and 128 W rows, 64 deep
     # padded to 72 (bf16)
-    assert emu.vf_ln_mlp_smem_bytes(768, 3072, 2) == 3 * 256 * 72 * 2
+    assert emu.vf_ln_mlp_smem_bytes(768) == 3 * 256 * 72 * 2
     # the attention half: its largest carve, the attention core's q|k|v,
     # scores and output at head dim 128 and L = 64 (f32), beside the GEMM's
     # ring of slabs of 272-byte rows: 2 stages of 128 rows (64 x 64 tile)
@@ -350,7 +412,7 @@ def test_shared_memory_fits_a_hopper_block(emu):
     gemm = 2 * 128 * 272
     assert emu.vf_attn_smem_bytes(768, 6, 64, 4) == max(core, gemm)
     assert emu.vf_attn_smem_bytes(768, 8, 8, 2) == gemm
-    # the ring path's carve (bf16, 16-divisible shapes): xa, three ring
+    # the ring path's carve (16-divisible shapes): xa, three ring
     # stages of the widest product's rows x 40, statistics, the 64 x 32
     # partials, and the larger of one head's scratch and the GELU chunk; at
     # every width, head width and group length the block kernel takes
@@ -365,7 +427,7 @@ def test_shared_memory_fits_a_hopper_block(emu):
                 head = (64 * 3 * D * 2 + -(-64 * L * 4 // 128) * 128
                         + 64 * (D + 8) * 2)
                 want = common + max(head, 64 * 136 * 2)
-                assert emu.vf_block_smem_bytes(C, H, L, 4 * C, 2) == want
+                assert emu.vf_block_smem_bytes(C, H, L) == want
                 assert want <= 232448
-        assert emu.vf_ln_mlp_smem_bytes(C, 4 * C, 2) == (
+        assert emu.vf_ln_mlp_smem_bytes(C) == (
             64 * (C + 8) * 2 + 3 * max(C, 128) * 80 + 512 + 8192 + 64 * 136 * 2)

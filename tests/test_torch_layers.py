@@ -81,8 +81,8 @@ def test_mlp(rng, ln_residual):
 
 @pytest.mark.parametrize("L", [8, 9, 80])
 def test_attn_block(rng, L):
-    """L <= 64 takes the whole-block op, L = 80 the two-halves route
-    (plain attention, then fused_ln_mlp): both equal the JAX block."""
+    """f32 blocks run the two halves: fused_ln_attn for L <= 64, plain
+    attention for L = 80, then fused_ln_mlp; both equal the JAX block."""
     C, H = 32, 4
     x = rng.normal(size=(5, L, C)).astype(np.float32) * 3
     jm = jlay.AttnBlock(C, H)
@@ -93,7 +93,8 @@ def test_attn_block(rng, L):
         cv._mlp(sd, f"{pre}.mlp", pp["mlp"])
 
     tm = _load(tlay.AttnBlock(C, H), fill, p["params"])
-    assert tfm.block_kernel_takes(C, L, H) == (L <= 64)
+    assert not tfm.block_route_takes(torch.float32, C, L, H, 4 * C)
+    assert tfm.ln_attn_takes(C, L, H) == (L <= 64)
     _close(tm(torch.from_numpy(x)), jm.apply(p, x), 1e-4)
 
 
@@ -113,6 +114,69 @@ def test_cross_attn_block(rng):
     tm = _load(tlay.CrossAttnBlock(C, H), fill, p["params"])
     _close(tm(torch.from_numpy(x), torch.from_numpy(ctx)),
            jm.apply(p, x, ctx), 1e-4)
+
+
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
+# (module dtype, token dtype, C, heads, mlp_ratio, L) -> the wrappers each
+# layer calls: AttnBlock, Mlp(ln_residual=True), CrossAttnBlock
+@pytest.mark.parametrize("mdt,xdt,C,H,ratio,L,block,mlp,cross", [
+    # the coarse tracker: one block kernel; the tails on fused_ln_mlp
+    (_BF, _BF, 384, 8, 4.0, 8, ["block"], ["mlp"], ["mlp"]),
+    # the fine tracker's width
+    (_BF, _BF, 256, 8, 4.0, 8, ["block"], ["mlp"], ["mlp"]),
+    # 768 wide in bf16 (the camera's cross-attention tails): the halves,
+    # the tail on the wide path
+    (_BF, _BF, 768, 8, 4.0, 8, ["attn", "mlp"], ["mlp"], ["mlp"]),
+    # f32 at 384 (the tracker's f32 precision): the attention half, then
+    # the tail on fused_ln_mlp's f32 kernels
+    (_F32, _F32, 384, 8, 4.0, 8, ["attn", "mlp"], ["mlp"], ["mlp"]),
+    # the camera trunk: f32 tokens in a bf16 module stay f32, and f32
+    # tails wider than 384 plain; its cross-attention rounds the tokens to
+    # bf16 before the tail
+    (_BF, _F32, 768, 8, 4.0, 8, ["attn"], [], ["mlp"]),
+    # bf16 with head width 8: the halves, both on their kernels
+    (_BF, _BF, 48, 6, 4.0, 8, ["attn", "mlp"], ["mlp"], ["mlp"]),
+    # bf16 with hidden size 100: the attention half, then plain
+    (_BF, _BF, 64, 4, 100 / 64, 8, ["attn"], [], []),
+    # bf16 groups longer than 64: plain attention, then fused_ln_mlp
+    (_BF, _BF, 64, 4, 4.0, 80, ["mlp"], ["mlp"], ["mlp"]),
+], ids=["tracker-384", "fine-tracker-256", "bf16-768", "f32-384",
+        "trunk-f32-768", "bf16-head-8", "bf16-hidden-100", "bf16-L-80"])
+def test_layer_routes(monkeypatch, mdt, xdt, C, H, ratio, L, block, mlp,
+                      cross):
+    """Which fused former wrapper each layer calls, from the route
+    predicates of ops/fused_mlp.py alone (on the CPU every wrapper runs
+    its plain version)."""
+    calls = []
+    for name, key in (("fused_transformer_block", "block"),
+                      ("fused_ln_attn", "attn"), ("fused_ln_mlp", "mlp")):
+        def spy(*a, _fn=getattr(tlay, name), _key=key):
+            calls.append(_key)
+            return _fn(*a)
+        monkeypatch.setattr(tlay, name, spy)
+    g = torch.Generator().manual_seed(0)
+
+    def init(m):
+        with torch.no_grad():
+            for p in m.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+        return m
+
+    x = torch.randn(2, L, C, generator=g).to(xdt)
+    got = {}
+    for layer, run in (
+            ("block", lambda: init(tlay.AttnBlock(C, H, ratio, mdt))(x)),
+            ("mlp", lambda: init(tlay.Mlp(C, int(C * ratio), C, mdt))(
+                x, ln_residual=True)),
+            ("cross", lambda: init(tlay.CrossAttnBlock(C, H, ratio, mdt))(
+                x, x[:, :5]))):
+        calls.clear()
+        with torch.no_grad():
+            run()
+        got[layer] = list(calls)
+    assert got == {"block": block, "mlp": mlp, "cross": cross}
 
 
 # ----------------------------------------------------------- convolution

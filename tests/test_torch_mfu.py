@@ -1,15 +1,14 @@
-"""The port's FLOP ledger (vggsfm_tpu_torch/utils/mfu.py) and its parity
-harness (vggsfm_tpu_torch/parity_check.py), on the CPU.
+"""The port's kernel FLOP formulas and its parity harness
+(vggsfm_tpu_torch/parity_check.py), on the CPU.
 
-The ledger's cases are tests/test_mfu.py's, in torch. Each hand-written
-kernel charges its FLOPs by one formula (ops/fused_mlp.py `*_flops`,
-ops/corr.py `corr_flops`): the formula must equal what FlopCounterMode
-counts of the kernel's plain version, and a counted call through the
-wrapper (on the CPU, the plain version with the counter suspended) must
-count it once. The audit runs on a checkpoint of the reference key set
-(tests/fixtures/vggsfm_v2_keys.json) saved as broadcast views, ~0.2 MB;
-the scene run and fixture diff on the 4 x 128 px scene of
-tests/test_torch_runner_export.py with its tiny camera predictor.
+Each hand-written kernel has one FLOP formula (ops/fused_mlp.py
+`*_flops`, ops/corr.py `corr_flops`), which the benchmark's own copies are
+held to (benchmark/tests/test_bench_work.py): the formula must equal what
+FlopCounterMode counts of the kernel's plain version. The audit runs on a
+checkpoint of the reference key set (tests/fixtures/vggsfm_v2_keys.json)
+saved as broadcast views, ~0.2 MB; the scene run and fixture diff on the
+4 x 128 px scene of tests/test_torch_runner_export.py with its tiny camera
+predictor.
 """
 
 import functools
@@ -23,14 +22,11 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from vggsfm_tpu_torch import parity_check as pc
 from vggsfm_tpu_torch import runner as trun
-from vggsfm_tpu_torch.ba import BAConfig, bundle_adjust
 from vggsfm_tpu_torch.models import CameraPredictor, TrackerPredictor
 from vggsfm_tpu_torch.models import init_tracker_
 from vggsfm_tpu_torch.ops import corr as cm
 from vggsfm_tpu_torch.ops import fused_mlp as fm
-from vggsfm_tpu_torch.utils import mfu
 from vggsfm_tpu_torch.utils import synth as tsynth
-from tests.test_ba import make_bundle
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "vggsfm_v2_keys.json")
@@ -44,89 +40,6 @@ def _one_intra_op_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture(autouse=True)
-def _clean_ledger():
-    mfu.reset()
-    yield
-    mfu.reset()
-    mfu.SYNC_TIMING = False
-
-
-# ------------------------------------------------------------ the ledger
-
-class TestLedger:
-    def test_record_and_flops(self):
-        a = torch.ones(64, 64)
-        out = mfu.timed_call("mm", torch.mm, (a, a), {})
-        np.testing.assert_allclose(out.numpy(), 64.0)
-        rep = mfu.flops_report()
-        assert rep["mm"]["calls"] == 1
-        # FLOPs are counted in a measurement pass only
-        assert rep["mm"]["flops_per_call"] is None
-        with mfu.sync_timing():
-            mfu.timed_call("mm", torch.mm, (a, a), {})
-        rep = mfu.flops_report()
-        assert rep["mm"]["calls"] == 2
-        # 64^3 multiply-adds, two FLOPs each
-        assert rep["mm"]["flops_per_call"] == 2 * 64 ** 3
-        # the first call at these shapes was recorded outside the pass
-        assert rep["mm"]["total_flops"] == 2 * 2 * 64 ** 3
-
-    def test_inner_calls_are_part_of_the_outer(self):
-        """A recorded call inside another runs unrecorded (the JAX
-        ledger skips its trace-time calls the same way)."""
-        def outer(x):
-            return mfu.timed_call("inner", torch.mm, (x, x), {})
-
-        with mfu.sync_timing():
-            mfu.timed_call("outer", outer, (torch.ones(8, 8),), {})
-        rep = mfu.flops_report()
-        assert "inner" not in rep
-        assert rep["outer"]["flops_per_call"] == 2 * 8 ** 3
-
-    def test_sync_timing_accumulates_seconds(self):
-        a = torch.ones(128, 128)
-        with mfu.sync_timing():
-            for _ in range(3):
-                mfu.timed_call("mm2", torch.mm, (a, a), {})
-        rep = mfu.flops_report()
-        assert rep["mm2"]["calls"] == 3
-        # the counted call is not timed: the counter's overhead stays out
-        assert rep["mm2"]["timed_calls"] == 2
-        assert rep["mm2"]["device_s"] > 0
-        assert "mfu" not in rep["mm2"]  # no peak for the CPU
-
-    def test_kwargs_and_none_args(self):
-        def fn(a, b=None, scale=1.0):
-            return a * scale
-
-        with mfu.sync_timing():
-            mfu.timed_call("k", fn, (torch.ones(8), None), {"scale": 3.0})
-        rep = mfu.flops_report()
-        assert rep["k"]["flops_per_call"] == 0  # elementwise: not counted
-
-    def test_peak_table(self):
-        name = "NVIDIA H100 80GB HBM3"
-        assert mfu.peak_flops(name) == 989.4e12
-        assert mfu.mfu(989.4e12, 1.0, name) == pytest.approx(1.0)
-        assert mfu.peak_flops("NVIDIA A10G") is None
-        # no card (or the CPU): no peak, no MFU
-        assert mfu.peak_flops("cpu") is None
-        assert mfu.mfu(1e12, 1.0, "cpu") is None
-        assert all("H100" in k for k, _, _ in mfu._PEAK_BF16)
-
-    def test_solvers_go_through_the_ledger(self, rng):
-        extr, intr, X, tracks, mask = make_bundle(rng, S=3, N=20)
-        t = lambda a: torch.as_tensor(a, dtype=torch.float32)  # noqa: E731
-        with mfu.sync_timing():
-            bundle_adjust(t(extr), t(intr), t(X), t(tracks),
-                          torch.as_tensor(mask),
-                          cfg=BAConfig(max_iterations=2))
-        rep = mfu.flops_report()
-        assert rep["ba_dense"]["calls"] == 1
-        assert rep["ba_dense"]["flops_per_call"] > 0
 
 
 # ------------------------------------------------------------ the kernels
@@ -146,16 +59,14 @@ def _kernel_cases(kind, dtype):
     if kind == "fused_transformer_block":
         args = (a["x"], a["w_in"], a["b_in"], a["w_out"], a["b_out"],
                 a["w1"], a["b1"], a["w2"], a["b2"], L, H)
-        return (fm.fused_transformer_block, fm.fused_transformer_block_ref,
-                args, fm.block_flops(R, C, M, L))
+        return (fm.fused_transformer_block_ref, args,
+                fm.block_flops(R, C, M, L))
     if kind == "fused_ln_mlp":
         args = (a["x"], a["w1"], a["b1"], a["w2"], a["b2"])
-        return (fm.fused_ln_mlp, fm.fused_ln_mlp_ref, args,
-                fm.ln_mlp_flops(R, C, M))
+        return fm.fused_ln_mlp_ref, args, fm.ln_mlp_flops(R, C, M)
     if kind == "fused_ln_attn":
         args = (a["x"], a["w_in"], a["b_in"], a["w_out"], a["b_out"], L, H)
-        return (fm.fused_ln_attn, fm.fused_ln_attn_ref, args,
-                fm.ln_attn_flops(R, C, L))
+        return fm.fused_ln_attn_ref, args, fm.ln_attn_flops(R, C, L)
     F, N, Cc, rad = 3, 5, (16 if kind.endswith("smallc") else 128), 2
     maps = torch.randn(F, 9, 7, Cc, generator=g).to(dtype)
     levels = [maps, torch.randn(F, 4, 3, Cc, generator=g).to(dtype)]
@@ -165,8 +76,7 @@ def _kernel_cases(kind, dtype):
     coords = torch.rand(F, N, 2, generator=g) * 8
     feats = torch.randn(F, N, Cc, generator=g).to(dtype)
     args = (levels, coords, feats, rad)
-    return (cm.corr_sample_kernel, cm.corr_sample_plain, args,
-            cm.corr_flops(F, N, Cc, rad, 2))
+    return cm.corr_sample_plain, args, cm.corr_flops(F, N, Cc, rad, 2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -174,43 +84,11 @@ def _kernel_cases(kind, dtype):
                                   "fused_ln_attn", "corr_sample_pallas",
                                   "corr_sample_pallas_smallc"])
 def test_kernel_formula_is_the_plain_versions_count(kind, dtype):
-    """formula == FlopCounterMode's count of the plain version; a counted
-    call through the wrapper charges the formula once, under the kernel's
-    name, and nothing of the plain version's own ops."""
-    wrapper, ref, args, formula = _kernel_cases(kind, dtype)
+    """formula == FlopCounterMode's count of the plain version."""
+    ref, args, formula = _kernel_cases(kind, dtype)
     with FlopCounterMode(display=False) as counter:
         ref(*args)
     assert counter.get_total_flops() == formula
-    _, by_op = mfu.count_flops(wrapper, *args)
-    assert by_op == {f"kernel:{kind}": float(formula)}
-
-
-def test_a_tracker_call_counts_each_kernel_launch_once():
-    """The coarse predictor (2 layers, narrow) through the ledger: the
-    counted FLOPs are the counter's aten ops plus, per wrapper call, its
-    formula."""
-    from vggsfm_tpu_torch.models.tracker import BaseTrackerPredictor
-
-    pred = BaseTrackerPredictor(corr_levels=2, corr_radius=4,
-                                hidden_size=64, depth=2).eval()
-    init_tracker_(pred, torch.Generator().manual_seed(0))
-    q = torch.rand(1, 6, 2) * 50
-    fmaps = torch.randn(1, 3, 8, 8, 128)
-    with torch.no_grad():
-        _, by_op = mfu.count_flops(pred, q, fmaps, iters=2, down_ratio=2)
-    for name in ("fused_transformer_block", "fused_ln_mlp",
-                 "corr_sample_pallas"):
-        assert by_op[f"kernel:{name}"] > 0, by_op
-    # per iteration 2 time blocks over (6 tracks + 64 virtual) x 3 frames
-    # rows in groups of 3, and 2 virtual blocks over 3 x 64 rows in groups
-    # of 64; 2 iterations
-    assert by_op["kernel:fused_transformer_block"] == 2 * 2 * (
-        fm.block_flops(70 * 3, 64, 256, 3) + fm.block_flops(3 * 64, 64, 256,
-                                                            64))
-    # the correlation: one launch per iteration, 6 tracks x 3 frames
-    assert by_op["kernel:corr_sample_pallas"] == 2 * cm.corr_flops(
-        3, 6, 128, 4, 2)
-    assert "aten.mm" in by_op  # the former's other matrix products
 
 
 # ------------------------------------------------------------ parity_check

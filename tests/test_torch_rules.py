@@ -70,7 +70,7 @@ def test_port_imports_no_jax():
             "datasets/imc.py", "datasets/imc_submission.py", "imc_eval.py",
             "twoview/homography.py", "twoview/five_point.py",
             "twoview/epnp.py", "parallel/mesh.py", "parallel/sharded.py",
-            "parallel/multihost.py", "utils/mfu.py", "utils/trace.py",
+            "parallel/multihost.py", "utils/trace.py",
             "parity_check.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imports(p)
            if m.split(".")[0] in BANNED]

@@ -46,7 +46,7 @@ from vggsfm_tpu_torch.geometry.distortion import (
     apply_distortion,
 )
 from vggsfm_tpu_torch.geometry.rotations import axis_angle_to_matrix
-from vggsfm_tpu_torch.utils import mfu, trace
+from vggsfm_tpu_torch.utils import trace
 from vggsfm_tpu_torch.utils.precision import f32_matmuls
 
 _EPS = 1e-12
@@ -406,24 +406,15 @@ def _graphed_loop(iterate, state: tuple, n: int):
 # ---------------------------------------------------------------------------
 
 
-def bundle_adjust(*args, **kwargs):
-    """FLOP-ledger wrapper over the solver (utils/mfu.py), as in the JAX
-    package: every call is recorded under ``ba_dense``. The arguments and
-    the result are `_bundle_adjust`'s. The call is the tracer's span
-    ``ba.dense``, each LM iteration a span ``ba.iter`` (utils/trace.py)."""
-    with trace.span("ba.dense"):
-        return mfu.timed_call("ba_dense", _bundle_adjust, args, kwargs)
-
-
 @f32_matmuls
-def _bundle_adjust(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
-                  points3d: torch.Tensor, tracks: torch.Tensor,
-                  mask: torch.Tensor,
-                  extra_params: torch.Tensor | None = None,
-                  pose_free: torch.Tensor | None = None,
-                  intr_free: torch.Tensor | None = None,
-                  point_free: torch.Tensor | None = None,
-                  cfg: BAConfig = BAConfig(), group=None):
+def bundle_adjust(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
+                 points3d: torch.Tensor, tracks: torch.Tensor,
+                 mask: torch.Tensor,
+                 extra_params: torch.Tensor | None = None,
+                 pose_free: torch.Tensor | None = None,
+                 intr_free: torch.Tensor | None = None,
+                 point_free: torch.Tensor | None = None,
+                 cfg: BAConfig = BAConfig(), group=None):
     """Joint refinement of cameras and points by damped Gauss-Newton.
 
     extrinsics (S, 3, 4) world-to-camera [R | t]; intrinsics (S, 3, 3)
@@ -442,118 +433,120 @@ def _bundle_adjust(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
 
     Returns (extrinsics, intrinsics, extra_params, points3d, info) with
     ``info = {"cost": the cost after each iteration (max_iterations,),
-    "initial_cost", "final_cost"}``."""
-    S, N = mask.shape
-    dev = tracks.device
-    K = 0 if extra_params is None else extra_params.shape[-1]
-    C = 7 + K
-    dtype = torch.float32
+    "initial_cost", "final_cost"}``. The call is the tracer's span
+    ``ba.dense``, each LM iteration a span ``ba.iter`` (utils/trace.py)."""
+    with trace.span("ba.dense"):
+        S, N = mask.shape
+        dev = tracks.device
+        K = 0 if extra_params is None else extra_params.shape[-1]
+        C = 7 + K
+        dtype = torch.float32
 
-    tracks = tracks.to(dtype)
-    m = mask.to(dtype)
-    R = extrinsics[..., :3].to(dtype)
-    t = extrinsics[..., 3].to(dtype)
-    f = intrinsics[:, 0, 0].to(dtype)
-    pp = intrinsics[:, :2, 2].to(dtype)
-    k = (extra_params.to(dtype) if extra_params is not None
-         else torch.zeros((S, 0), dtype=dtype, device=dev))
-    X = points3d.to(dtype)
+        tracks = tracks.to(dtype)
+        m = mask.to(dtype)
+        R = extrinsics[..., :3].to(dtype)
+        t = extrinsics[..., 3].to(dtype)
+        f = intrinsics[:, 0, 0].to(dtype)
+        pp = intrinsics[:, :2, 2].to(dtype)
+        k = (extra_params.to(dtype) if extra_params is not None
+             else torch.zeros((S, 0), dtype=dtype, device=dev))
+        X = points3d.to(dtype)
 
-    if cfg.shared_intrinsics:
-        # the tying acts on the step, so the values are unified first
-        f = torch.exp(torch.log(torch.clamp(f, min=1e-6)).mean()).expand(S)
-        pp = pp.mean(0, keepdim=True).expand(S, 2)
-        if K:
-            k = k.mean(0, keepdim=True).expand(S, K)
+        if cfg.shared_intrinsics:
+            # the tying acts on the step, so the values are unified first
+            f = torch.exp(torch.log(torch.clamp(f, min=1e-6)).mean()).expand(S)
+            pp = pp.mean(0, keepdim=True).expand(S, 2)
+            if K:
+                k = k.mean(0, keepdim=True).expand(S, K)
 
-    if pose_free is None:
-        pose_free = torch.arange(S, device=dev) != 0
-    if intr_free is None:
-        intr_free = torch.ones(S, dtype=torch.bool, device=dev)
-    if point_free is None:
-        point_free = torch.ones(N, dtype=torch.bool, device=dev)
+        if pose_free is None:
+            pose_free = torch.arange(S, device=dev) != 0
+        if intr_free is None:
+            intr_free = torch.ones(S, dtype=torch.bool, device=dev)
+        if point_free is None:
+            point_free = torch.ones(N, dtype=torch.bool, device=dev)
 
-    slot_mask = torch.cat([
-        pose_free[:, None].to(dtype).expand(S, 6),
-        intr_free[:, None].to(dtype).expand(S, 1 + K)], dim=1)
-    if not cfg.refine_focal:
-        slot_mask[:, 6] = 0.0
-    if not cfg.refine_extra and K:
-        slot_mask[:, 7:] = 0.0
-    pmask = point_free.to(dtype)
-    frozen = torch.diag(1.0 - slot_mask.reshape(-1))
-    eye_c = torch.eye(C, dtype=dtype, device=dev)
-    eye_s = torch.eye(S, dtype=dtype, device=dev)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    eps_sc = cfg.diag_eps * torch.eye(S * C, dtype=dtype, device=dev)
-    T = (torch.as_tensor(_tying_matrix(S, K, True), device=dev)
-         if cfg.shared_intrinsics else None)
+        slot_mask = torch.cat([
+            pose_free[:, None].to(dtype).expand(S, 6),
+            intr_free[:, None].to(dtype).expand(S, 1 + K)], dim=1)
+        if not cfg.refine_focal:
+            slot_mask[:, 6] = 0.0
+        if not cfg.refine_extra and K:
+            slot_mask[:, 7:] = 0.0
+        pmask = point_free.to(dtype)
+        frozen = torch.diag(1.0 - slot_mask.reshape(-1))
+        eye_c = torch.eye(C, dtype=dtype, device=dev)
+        eye_s = torch.eye(S, dtype=dtype, device=dev)
+        eye3 = torch.eye(3, dtype=dtype, device=dev)
+        eps_sc = cfg.diag_eps * torch.eye(S * C, dtype=dtype, device=dev)
+        T = (torch.as_tensor(_tying_matrix(S, K, True), device=dev)
+             if cfg.shared_intrinsics else None)
 
-    def step(params, lam):
-        """The damped Gauss-Newton step at `params`: camera steps (S, C)
-        and point steps (N, 3)."""
+        def step(params, lam):
+            """The damped Gauss-Newton step at `params`: camera steps (S, C)
+            and point steps (N, 3)."""
+            R_, t_, f_, pp_, k_, X_ = params
+            pix, z, inter = _project(R_, t_, f_, pp_, k_, X_)
+            r = pix - tracks
+            valid = m * (z > 0)
+            sw = (_robust_sqrt_weight((r * r).sum(-1), cfg) * valid)[..., None]
+            Jc, Jp = _jacobians(R_, f_, k_, inter, not cfg.pose_only)
+            r = sw * r
+            Jc = sw[..., None] * Jc * slot_mask[:, None, None, :]
+            U = torch.einsum("snic,snid->scd", Jc, Jc)
+            b_c = -torch.einsum("snic,sni->sc", Jc, r)
+            U_d = U + lam * U * eye_c
+            A = torch.einsum("scd,st->sctd", U_d, eye_s)
+            if not cfg.pose_only:
+                Jp = sw[..., None] * Jp * pmask[None, :, None, None]
+                V = torch.einsum("snia,snib->nab", Jp, Jp)
+                b_p = -torch.einsum("snia,sni->na", Jp, r)
+                W = torch.einsum("snic,snia->snca", Jc, Jp)
+                Vinv = _inv3x3(V + lam * V * eye3 + cfg.diag_eps * eye3)
+                Y = torch.einsum("snca,nab->sncb", W, Vinv)
+                A = A - torch.einsum("snca,tnda->sctd", Y, W)
+                b_c = b_c - torch.einsum("snca,na->sc", Y, b_p)
+            # frozen slots: a unit diagonal keeps the system regular, the step
+            # stays 0
+            if group is not None:
+                # the points' shares of the reduced camera system, summed over
+                # the ranks in one collective
+                Ab = group.all_reduce(torch.cat(
+                    [A.reshape(-1), b_c.reshape(-1)]))
+                A, b_c = Ab[:-S * C], Ab[-S * C:]
+            A = A.reshape(S * C, S * C) + frozen + eps_sc
+            rhs = b_c.reshape(S * C)
+            if T is not None:
+                A, rhs = T.T @ A @ T, T.T @ rhs
+            sol = torch.linalg.solve_ex(A, rhs[:, None])[0][:, 0]
+            if T is not None:
+                sol = T @ sol
+            dc = sol.reshape(S, C) * slot_mask
+            if cfg.pose_only:
+                return dc, None
+            dX = torch.einsum("nab,nb->na", Vinv,
+                              b_p - torch.einsum("snca,sc->na", W, dc))
+            return dc, dX
+
+        def apply(params, dc, dX):
+            R_, t_, f_, pp_, k_, X_ = params
+            return (axis_angle_to_matrix(dc[:, :3]) @ R_, t_ + dc[:, 3:6],
+                    f_ * torch.exp(dc[:, 6]), pp_, k_ + dc[:, 7:] if K else k_,
+                    X_ + dX * pmask[:, None] if dX is not None else X_)
+
+        def total_cost(params):
+            R_, t_, f_, pp_, k_, X_ = params
+            return reprojection_cost(torch.cat([R_, t_[..., None]], -1), f_,
+                                     pp_, k_ if K else None, X_, tracks, m,
+                                     cfg, group)
+
+        params, info = lm_loop(step, apply, total_cost, (R, t, f, pp, k, X),
+                               cfg, group)
         R_, t_, f_, pp_, k_, X_ = params
-        pix, z, inter = _project(R_, t_, f_, pp_, k_, X_)
-        r = pix - tracks
-        valid = m * (z > 0)
-        sw = (_robust_sqrt_weight((r * r).sum(-1), cfg) * valid)[..., None]
-        Jc, Jp = _jacobians(R_, f_, k_, inter, not cfg.pose_only)
-        r = sw * r
-        Jc = sw[..., None] * Jc * slot_mask[:, None, None, :]
-        U = torch.einsum("snic,snid->scd", Jc, Jc)
-        b_c = -torch.einsum("snic,sni->sc", Jc, r)
-        U_d = U + lam * U * eye_c
-        A = torch.einsum("scd,st->sctd", U_d, eye_s)
-        if not cfg.pose_only:
-            Jp = sw[..., None] * Jp * pmask[None, :, None, None]
-            V = torch.einsum("snia,snib->nab", Jp, Jp)
-            b_p = -torch.einsum("snia,sni->na", Jp, r)
-            W = torch.einsum("snic,snia->snca", Jc, Jp)
-            Vinv = _inv3x3(V + lam * V * eye3 + cfg.diag_eps * eye3)
-            Y = torch.einsum("snca,nab->sncb", W, Vinv)
-            A = A - torch.einsum("snca,tnda->sctd", Y, W)
-            b_c = b_c - torch.einsum("snca,na->sc", Y, b_p)
-        # frozen slots: a unit diagonal keeps the system regular, the step
-        # stays 0
-        if group is not None:
-            # the points' shares of the reduced camera system, summed over
-            # the ranks in one collective
-            Ab = group.all_reduce(torch.cat(
-                [A.reshape(-1), b_c.reshape(-1)]))
-            A, b_c = Ab[:-S * C], Ab[-S * C:]
-        A = A.reshape(S * C, S * C) + frozen + eps_sc
-        rhs = b_c.reshape(S * C)
-        if T is not None:
-            A, rhs = T.T @ A @ T, T.T @ rhs
-        sol = torch.linalg.solve_ex(A, rhs[:, None])[0][:, 0]
-        if T is not None:
-            sol = T @ sol
-        dc = sol.reshape(S, C) * slot_mask
-        if cfg.pose_only:
-            return dc, None
-        dX = torch.einsum("nab,nb->na", Vinv,
-                          b_p - torch.einsum("snca,sc->na", W, dc))
-        return dc, dX
-
-    def apply(params, dc, dX):
-        R_, t_, f_, pp_, k_, X_ = params
-        return (axis_angle_to_matrix(dc[:, :3]) @ R_, t_ + dc[:, 3:6],
-                f_ * torch.exp(dc[:, 6]), pp_, k_ + dc[:, 7:] if K else k_,
-                X_ + dX * pmask[:, None] if dX is not None else X_)
-
-    def total_cost(params):
-        R_, t_, f_, pp_, k_, X_ = params
-        return reprojection_cost(torch.cat([R_, t_[..., None]], -1), f_,
-                                 pp_, k_ if K else None, X_, tracks, m, cfg,
-                                 group)
-
-    params, info = lm_loop(step, apply, total_cost, (R, t, f, pp, k, X),
-                           cfg, group)
-    R_, t_, f_, pp_, k_, X_ = params
-    intr = torch.zeros((S, 3, 3), dtype=dtype, device=dev)
-    intr[:, 0, 0] = f_
-    intr[:, 1, 1] = f_
-    intr[:, :2, 2] = pp_
-    intr[:, 2, 2] = 1.0
-    return (torch.cat([R_, t_[..., None]], -1), intr, k_ if K else None, X_,
-            info)
+        intr = torch.zeros((S, 3, 3), dtype=dtype, device=dev)
+        intr[:, 0, 0] = f_
+        intr[:, 1, 1] = f_
+        intr[:, :2, 2] = pp_
+        intr[:, 2, 2] = 1.0
+        return (torch.cat([R_, t_[..., None]], -1), intr,
+                k_ if K else None, X_, info)

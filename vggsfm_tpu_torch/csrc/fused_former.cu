@@ -9,9 +9,9 @@
 // synchronise, and returns 0 on success, a negative code for inputs the
 // kernels do not take (see check_*_shape; -7: an array not aligned, 32
 // bytes for the ring path's weights, 16 for the 16-byte copies; -9: the
-// wide MLP path's scratch missing), or the cudaError_t of a launch, each
-// checked as it is made. bf16 inputs whose dimensions the 16-wide
-// tensor-core tiles divide take the tensor-core instantiation (use_tc).
+// three-kernel MLP path's scratch missing; -100: a dtype the kernel does
+// not take, where the block takes bfloat16 only), or the cudaError_t of a
+// launch, each checked as it is made.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -23,27 +23,26 @@
 
 namespace vf {
 
-template <typename T, bool TC, class TL>
 __global__ void __launch_bounds__(kThreads, 1)
-    ln_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                  const T* __restrict__ b1, const T* __restrict__ w2,
-                  const T* __restrict__ b2, T* __restrict__ out, int R, int C,
-                  int M) {
+    ln_mlp_kernel(const bf* __restrict__ x, const bf* __restrict__ w1,
+                  const bf* __restrict__ b1, const bf* __restrict__ w2,
+                  const bf* __restrict__ b2, bf* __restrict__ out, int R,
+                  int C, int M) {
   extern __shared__ __align__(128) unsigned char smem[];
-  ln_mlp_body<T, TC, TL>(x, w1, b1, w2, b2, out, R, C, M, smem);
+  ln_mlp_body(x, w1, b1, w2, b2, out, R, C, M, smem);
 }
 
-template <typename T, bool TC>
 __global__ void __launch_bounds__(kThreads, 1)
-    block_kernel(const T* __restrict__ x, const T* __restrict__ w_in,
-                 const T* __restrict__ b_in, const T* __restrict__ w_out,
-                 const T* __restrict__ b_out, const T* __restrict__ w1,
-                 const T* __restrict__ b1, const T* __restrict__ w2,
-                 const T* __restrict__ b2, T* __restrict__ out, int R, int C,
-                 int M, int L, int H) {
+    block_kernel(const bf* __restrict__ x, const bf* __restrict__ w_in,
+                 const bf* __restrict__ b_in,
+                 const bf* __restrict__ w_out,
+                 const bf* __restrict__ b_out, const bf* __restrict__ w1,
+                 const bf* __restrict__ b1, const bf* __restrict__ w2,
+                 const bf* __restrict__ b2, bf* __restrict__ out, int R,
+                 int C, int M, int L, int H) {
   extern __shared__ __align__(128) unsigned char smem[];
-  block_body<T, TC>(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R, C,
-                    M, L, H, smem);
+  block_body(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R, C, M, L, H,
+             smem);
 }
 
 template <typename T>
@@ -106,41 +105,39 @@ inline bool aligned32(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 32 == 0;
 }
 
-template <typename T, bool TC, class TL>
+// The ring path's ln_mlp (C <= 384).
 int launch_ln_mlp(const void* x, const void* w1, const void* b1,
                   const void* w2, const void* b2, void* out, int R, int C,
                   int M, cudaStream_t stream) {
-  if (TC && !(aligned32(w1) && aligned32(w2))) return -7;
-  const size_t smem = ln_mlp_smem_bytes(C, M, sizeof(T));
-  const int e = allow_smem(ln_mlp_kernel<T, TC, TL>, smem);
+  if (!(aligned32(w1) && aligned32(w2))) return -7;
+  const size_t smem = ln_mlp_smem_bytes(C);
+  const int e = allow_smem(ln_mlp_kernel, smem);
   if (e) return e;
-  const int grid = (R + TL::BM - 1) / TL::BM;
-  ln_mlp_kernel<T, TC, TL><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(out), R, C, M);
+  const int grid = cdiv(R, NarrowTile::BM);
+  ln_mlp_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf*>(x), static_cast<const bf*>(w1),
+      static_cast<const bf*>(b1), static_cast<const bf*>(w2),
+      static_cast<const bf*>(b2), static_cast<bf*>(out), R, C, M);
   return int(cudaGetLastError());
 }
 
-template <typename T, bool TC>
 int launch_block(const void* x, const void* w_in, const void* b_in,
                  const void* w_out, const void* b_out, const void* w1,
                  const void* b1, const void* w2, const void* b2, void* out,
                  int R, int C, int M, int L, int H, cudaStream_t stream) {
-  if (TC && !(aligned32(w_in) && aligned32(w_out) && aligned32(w1)
-              && aligned32(w2)))
+  if (!(aligned32(w_in) && aligned32(w_out) && aligned32(w1)
+        && aligned32(w2)))
     return -7;
-  const size_t smem = block_smem_bytes(C, H, L, M, sizeof(T));
-  const int e = allow_smem(block_kernel<T, TC>, smem);
+  const size_t smem = block_smem_bytes(C, H, L);
+  const int e = allow_smem(block_kernel, smem);
   if (e) return e;
-  const int br = block_rows(L);
-  const int grid = (R + br - 1) / br;
-  block_kernel<T, TC><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w_in),
-      static_cast<const T*>(b_in), static_cast<const T*>(w_out),
-      static_cast<const T*>(b_out), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(out), R, C, M, L, H);
+  const int grid = cdiv(R, block_rows(L));
+  block_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf*>(x), static_cast<const bf*>(w_in),
+      static_cast<const bf*>(b_in), static_cast<const bf*>(w_out),
+      static_cast<const bf*>(b_out), static_cast<const bf*>(w1),
+      static_cast<const bf*>(b1), static_cast<const bf*>(w2),
+      static_cast<const bf*>(b2), static_cast<bf*>(out), R, C, M, L, H);
   return int(cudaGetLastError());
 }
 
@@ -159,11 +156,10 @@ int launch_ln_rows(const void* x, void* xn, float* stats, int R, int C,
 
 // The wide MLP path: xn = LN(x), h = gelu(xn w1^T + b1), out = x + (h w2^T
 // + b2); xn (R, C) and h (R, M) are the caller's bf16 scratch
-// (wide_mlp_scratch_bytes).
+// (split_mlp_scratch_bytes).
 int launch_wide_mlp(const void* x, const void* w1, const void* b1,
                     const void* w2, const void* b2, void* out, void* scratch,
                     int R, int C, int M, cudaStream_t stream) {
-  using bf = __nv_bfloat16;
   if (!scratch) return -9;
   void* xn = scratch;
   void* h = static_cast<bf*>(scratch) + size_t(R) * C;
@@ -191,25 +187,6 @@ int launch_wide_mlp(const void* x, const void* w1, const void* b1,
   return int(cudaGetLastError());
 }
 
-template <typename T, bool TC>
-int launch_ln_mlp_tile(const void* x, const void* w1, const void* b1,
-                       const void* w2, const void* b2, void* out,
-                       void* scratch, int R, int C, int M,
-                       cudaStream_t stream) {
-  if constexpr (TC) {
-    if (C > kMaxC)
-      return launch_wide_mlp(x, w1, b1, w2, b2, out, scratch, R, C, M,
-                             stream);
-    return launch_ln_mlp<T, true, NarrowTile>(x, w1, b1, w2, b2, out, R, C,
-                                              M, stream);
-  }
-  if (C <= kMaxC)
-    return launch_ln_mlp<T, false, NarrowTile>(x, w1, b1, w2, b2, out, R, C,
-                                               M, stream);
-  return launch_ln_mlp<T, false, WideTile>(x, w1, b1, w2, b2, out, R, C, M,
-                                           stream);
-}
-
 // One cc_gemm_body product (R x N, depth K) at the tile cc_tile picks.
 template <typename T, int KIND>
 int launch_cc_gemm(const T* A, const T* W, int R, int N, int K,
@@ -232,6 +209,37 @@ int launch_cc_gemm(const T* A, const T* W, int R, int N, int K,
         A, K, W, K, R, N, K, epi);
   }
   return int(cudaGetLastError());
+}
+
+// The f32 MLP path: the wide path's three steps with the two products on
+// cc_gemm_body; xn (R, C) and h (R, M) are the caller's f32 scratch
+// (split_mlp_scratch_bytes).
+int launch_cc_mlp(const void* x, const void* w1, const void* b1,
+                  const void* w2, const void* b2, void* out, void* scratch,
+                  int R, int C, int M, cudaStream_t stream) {
+  if (!scratch) return -9;
+  float* xn = static_cast<float*>(scratch);
+  float* h = xn + size_t(R) * C;
+  if (!(aligned16(x) && aligned16(w1) && aligned16(w2) && aligned16(out)
+        && aligned16(xn) && aligned16(h)))
+    return -7;
+  int dev = 0, sms = 0;
+  int e = int(cudaGetDevice(&dev));
+  if (!e)
+    e = int(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev));
+  if (!e) e = launch_ln_rows<float>(x, xn, nullptr, R, C, stream);
+  if (e) return e;
+  const Epi<float> fc1{static_cast<const float*>(b1), nullptr, nullptr, h,
+                       M};
+  e = launch_cc_gemm<float, kEpiGelu>(xn, static_cast<const float*>(w1), R,
+                                      M, C, fc1, sms, stream);
+  if (e) return e;
+  const Epi<float> fc2{static_cast<const float*>(b2),
+                       static_cast<const float*>(x), nullptr,
+                       static_cast<float*>(out), C};
+  return launch_cc_gemm<float, kEpiResid>(h, static_cast<const float*>(w2), R,
+                                          C, M, fc2, sms, stream);
 }
 
 template <typename T, int BM>
@@ -286,8 +294,8 @@ int launch_attn(const void* x, const void* w_in, const void* b_in,
 
 extern "C" {
 
-// scratch: vf_ln_mlp_scratch_bytes of device memory (the wide path's xn
-// and h; null where that is 0).
+// scratch: vf_ln_mlp_scratch_bytes of device memory (the three-kernel
+// path's xn and h; null where that is 0).
 int vf_fused_ln_mlp(int dtype, const void* x, const void* w1, const void* b1,
                     const void* w2, const void* b2, void* out, void* scratch,
                     int R, int C, int M, void* stream) {
@@ -295,23 +303,21 @@ int vf_fused_ln_mlp(int dtype, const void* x, const void* w1, const void* b1,
   if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return vf::launch_ln_mlp_tile<float, false>(x, w1, b1, w2, b2, out,
-                                                nullptr, R, C, M, st);
+    return vf::launch_cc_mlp(x, w1, b1, w2, b2, out, scratch, R, C, M, st);
   if (dtype != 1) return -100;
-  if (vf::use_tc(2, C, 16, M))
-    return vf::launch_ln_mlp_tile<__nv_bfloat16, true>(x, w1, b1, w2, b2, out,
-                                                       scratch, R, C, M, st);
-  return vf::launch_ln_mlp_tile<__nv_bfloat16, false>(
-      x, w1, b1, w2, b2, out, nullptr, R, C, M, st);
+  if (vf::split_mlp(2, C))
+    return vf::launch_wide_mlp(x, w1, b1, w2, b2, out, scratch, R, C, M, st);
+  return vf::launch_ln_mlp(x, w1, b1, w2, b2, out, R, C, M, st);
 }
 
-// Kernels one vf_fused_ln_mlp call launches: 3 on the wide path, else 1.
-int vf_ln_mlp_kernels(int dtype, int C, int M) {
-  return vf::ln_mlp_kernels(dtype == 1 ? 2 : 4, C, M);
+// Kernels one vf_fused_ln_mlp call launches: 3 in f32 and on the wide
+// path, else 1.
+int vf_ln_mlp_kernels(int dtype, int C) {
+  return vf::ln_mlp_kernels(dtype == 1 ? 2 : 4, C);
 }
 
 size_t vf_ln_mlp_scratch_bytes(int dtype, int R, int C, int M) {
-  return vf::wide_mlp_scratch_bytes(dtype == 1 ? 2 : 4, R, C, M);
+  return vf::split_mlp_scratch_bytes(dtype == 1 ? 2 : 4, R, C, M);
 }
 
 int vf_fused_block(int dtype, const void* x, const void* w_in,
@@ -321,16 +327,9 @@ int vf_fused_block(int dtype, const void* x, const void* w_in,
                    int H, void* stream) {
   const int bad = vf::check_block_shape(R, C, M, L, H);
   if (bad) return bad;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return vf::launch_block<float, false>(x, w_in, b_in, w_out, b_out, w1, b1,
-                                          w2, b2, out, R, C, M, L, H, st);
   if (dtype != 1) return -100;
-  if (vf::use_tc(2, C, C / H, M))
-    return vf::launch_block<__nv_bfloat16, true>(
-        x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R, C, M, L, H, st);
-  return vf::launch_block<__nv_bfloat16, false>(
-      x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R, C, M, L, H, st);
+  return vf::launch_block(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R,
+                          C, M, L, H, static_cast<cudaStream_t>(stream));
 }
 
 // Launches the attention half's four kernels (fused_former.cuh). scratch:
@@ -359,13 +358,11 @@ size_t vf_attn_scratch_bytes(int dtype, int R, int C) {
 int vf_cc_tile(int R, int N, int sms) { return vf::cc_tile(R, N, sms); }
 
 // Shared memory one block of each kernel takes, for reports and tests.
-size_t vf_block_smem_bytes(int C, int H, int L, int M, int tsize) {
-  return vf::block_smem_bytes(C, H, L, M, tsize);
+size_t vf_block_smem_bytes(int C, int H, int L) {
+  return vf::block_smem_bytes(C, H, L);
 }
 
-size_t vf_ln_mlp_smem_bytes(int C, int M, int tsize) {
-  return vf::ln_mlp_smem_bytes(C, M, tsize);
-}
+size_t vf_ln_mlp_smem_bytes(int C) { return vf::ln_mlp_smem_bytes(C); }
 
 size_t vf_attn_smem_bytes(int C, int H, int L, int tsize) {
   return vf::attn_smem_bytes(C, H, L, tsize);

@@ -5,6 +5,7 @@
 //   fused_transformer_block (_block_kernel) -> block_body below,
 //   fused_ln_mlp (_kernel)                  -> ln_mlp_body below; at
 //       384 < C <= 768 in bf16: ln_rows_body + tc_gemm_body (three kernels),
+//       in f32: ln_rows_body + cc_gemm_body (three kernels),
 //   fused_ln_attn (_attn_kernel)            -> ln_rows_body, cc_gemm_body,
 //       attn_core_body, cc_gemm_body (four kernels).
 //
@@ -14,23 +15,24 @@
 // for the coarse time block, R = 33280, at the bf16 peak). Next comes the
 // L2 traffic of weights every block re-reads: 3.54 MB per 64-row block at
 // C = 384, 1.84 GB per launch at R = 33280, ~0.3 ms at the L2's rate.
-// The whole-row instantiations keep every intermediate on-chip, which is
-// what the TPU kernel is for:
-//   * one block of 256 threads (8 warps) owns a tile of whole rows: 64 rows
-//     (C <= 384) or 32 rows (C <= 768, f32 only) of the MLP tail; up to 64
-//     rows = whole tracks (64 / L tracks of L rows) of the block kernel, so
-//     attention never leaves the block;
-//   * the residual stream (x1, then the MLP output) stays in registers:
-//     96 f32 values per thread at C = 384 and at C = 768;
-//   * attention runs head by head on the CUDA cores: q/k/v of one head
-//     (64 x 3D), its L x L scores and its output are the only per-head
-//     state in shared memory, and the out-projection accumulates into x1;
+// The block and ln_mlp at C <= 384 keep every intermediate on-chip, which
+// is what the TPU kernel is for:
+//   * one block of 256 threads (8 warps) owns a tile of 64 whole rows of
+//     the MLP tail; up to 64 rows = whole tracks (64 / L tracks of L rows)
+//     of the block kernel, so attention never leaves the block;
+//   * the residual stream (x1, then the MLP output) stays in registers;
+//   * attention runs head by head: q/k/v of one head (64 x 3D), its L x L
+//     scores and its output are the only per-head state in shared memory,
+//     and the out-projection accumulates into x1;
 //   * the MLP streams the hidden width in chunks (fc1 chunk -> GELU ->
 //     accumulate fc2), so the 4C hidden never exists.
 //
-// The ring path: the bf16 tensor-core instantiations of the block kernel
-// and of ln_mlp at C <= 384 (the tracker's), block_body_ring and
-// ln_mlp_body_ring below. Against the operations it runs every product on
+// The ring path: the block kernel and ln_mlp at C <= 384 (the tracker's),
+// block_body and ln_mlp_body below. Both take bf16 only, with C, the head
+// width D and the hidden size M multiples of the 16-wide mma tile
+// (check_*_shape); f32 blocks run as the attention half's and the f32 MLP
+// path's kernels, other shapes plain (ops/fused_mlp.py). Against the
+// operations it runs every product on
 // the tensor cores with mma.sync m16n8k16 (bf16 operands, f32
 // accumulation, the TPU kernel's preferred_element_type=f32 dots), both
 // operands from shared memory by ldmatrix, warps split so that every
@@ -46,8 +48,8 @@
 // The wide MLP path: ln_mlp in bf16 at 384 < C <= 768 (the camera's
 // cross-attention tails, R = 32312, C = 768, M = 3072: 305 GFLOP, 0.31 ms
 // at the bf16 peak, bound by operations). A whole-row tile there holds 32
-// rows at most, and every 32-row block re-read all 9.4 MB of weights (9.5
-// GB of L2 reads per launch). So the op runs as three kernels with the
+// rows at most, and every 32-row block would re-read all 9.4 MB of weights
+// (9.5 GB of L2 reads per launch). So the op runs as three kernels with the
 // TPU kernel's rounding points: ln_rows_body writes xn = bf16(LN(x));
 // tc_gemm_body writes h = bf16(gelu(xn w1^T + b1)), then out = bf16(x +
 // (h w2^T + b2)). Each GEMM block computes a 128 x 128 output tile (warp
@@ -77,10 +79,12 @@
 // columns and the out-projection 192 of 16 x 16, each weight byte read by
 // one (four) blocks; at R = 4096, 64 x 64 tiles.
 //
-// The other instantiations keep the first design: f32, and bf16 shapes the
-// 16-wide tiles do not divide, on the CUDA cores in f32 (gemm_nt: bf16
-// operands widened on load, so products are exact and sums f32 either
-// way, weights staged in 16-deep k-tiles).
+// The f32 MLP path: fused_ln_mlp in f32 runs the wide path's three steps
+// with cc_gemm_body for the two products (ln_rows_body, then h = gelu(xn
+// w1^T + b1) and out = x + (h w2^T + b2) through f32 scratch), so that an
+// f32 block (the tracker's f32 precision) runs hand-written kernels end to
+// end without a second body of the ring path.
+//
 // Shared memory peaks at 201,216 bytes per block (ring path, C = 384,
 // D = 64, L = 64), inside the 232,448 a Hopper block may take.
 //
@@ -100,29 +104,22 @@
 
 namespace vf {
 
+using bf = __nv_bfloat16;  // the ring and wide paths' working dtype
+
 constexpr int kThreads = 256;        // 16 x 16 thread grid, 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kBK = 16;              // k-depth of one staged weight tile
-constexpr int kMC = 64;              // MLP hidden chunk
 constexpr int kMaxC = 384;           // widest C of the 64-row register tile
-constexpr int kMaxWideC = 768;       // widest C of the 32-row register tile
+constexpr int kMaxWideC = 768;       // widest C of the wide MLP path and of
+                                     // the attention half
 constexpr int kMaxD = 64;            // widest head of the block kernel
-constexpr int kNJD = kMaxD / 16;
 constexpr int kMaxL = 64;            // longest attention group (rows/track)
 constexpr int kAttnMaxD = 128;       // widest head of the attention half
 
-// A block's row tile and the register tile holding its residual stream:
-// thread (ty, tx) of the 16 x 16 grid owns rows ty + 16 i (i < RI) and
-// columns tx + 16 j (j < NJ).
-template <int BM_, int MAXC_>
-struct Tile {
-  static constexpr int BM = BM_;
-  static constexpr int RI = BM_ / 16;
-  static constexpr int MAXC = MAXC_;
-  static constexpr int NJ = MAXC_ / 16;
+// The row tile of the ring path (the block kernel; ln_mlp at C <= 384):
+// 64 rows of up to kMaxC columns.
+struct NarrowTile {
+  static constexpr int BM = 64;
 };
-using NarrowTile = Tile<64, kMaxC>;     // block kernel; ln_mlp at C <= 384
-using WideTile = Tile<32, kMaxWideC>;   // ln_mlp at 384 < C <= 768, CUDA cores
 
 // ---------------------------------------------------------------- host side
 
@@ -133,37 +130,8 @@ __host__ __device__ inline size_t align_up(size_t n) {
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Whether the tensor-core path takes these shapes: bf16, and every
-// product's dimensions multiples of the 16-wide mma tile.
-__host__ __device__ inline bool use_tc(int tsize, int C, int D, int M) {
-  return tsize == 2 && C % 16 == 0 && D % 16 == 0 && M % 16 == 0;
-}
-
-__host__ __device__ inline int a_stride(int C, int tsize) {
-  // pad the A-operand rows off a multiple of 32 banks
-  return C + (tsize == 2 ? 2 : 1);
-}
-
-__host__ __device__ inline size_t common_smem(int BM, int C, int tsize) {
-  const int bs_width = C > kMC ? C : kMC;
-  return align_up(size_t(BM) * a_stride(C, tsize) * tsize)  // A
-         + align_up(size_t(kBK) * bs_width * 4)              // W tile
-         + align_up(size_t(BM) * 2 * 4)                      // stats
-         + align_up(size_t(BM) * 16 * 4);                    // partials
-}
-
-__host__ __device__ inline size_t mlp_scratch(int BM, int tsize) {
-  return align_up(size_t(BM) * kMC * tsize);
-}
-
-__host__ __device__ inline size_t attn_scratch(int BM, int D, int L,
-                                               int tsize) {
-  return align_up(size_t(BM) * 3 * D * tsize)
-         + align_up(size_t(BM) * L * 4) + align_up(size_t(BM) * D * tsize);
-}
-
-// Constants and shared memory of the ring path (the bf16 tensor-core block
-// kernel and ln_mlp at C <= 384; see "the ring path" below).
+// Constants and shared memory of the ring path (the block kernel and
+// ln_mlp at C <= 384; see "the ring path" below).
 constexpr int kStages = 3;             // weight ring: stages of k-slabs
 constexpr int kRC = 128;               // MLP hidden chunk of the ring path
 constexpr int kPad = 8;                // bf16 padding of shared-memory rows
@@ -223,19 +191,20 @@ __host__ __device__ inline size_t tc_gemm_smem_bytes() {
   return size_t(kGStages) * (kGM + kGN) * kGLd * 2;
 }
 
-// Whether fused_ln_mlp runs as the wide path's three kernels (bf16 on the
-// tensor cores at 384 < C <= 768); 1 kernel otherwise.
-inline bool wide_mlp(int tsize, int C, int M) {
-  return use_tc(tsize, C, 16, M) && C > kMaxC;
+// Whether fused_ln_mlp in a working dtype of tsize bytes runs as three
+// kernels (the LayerNorm pass, then two GEMMs): in bf16 above C = 384 (the
+// wide path's tensor-core GEMMs) and in f32 at every width (the attention
+// half's CUDA-core GEMM); the ring path's one kernel otherwise.
+inline bool split_mlp(int tsize, int C) { return tsize == 4 || C > kMaxC; }
+
+inline int ln_mlp_kernels(int tsize, int C) {
+  return split_mlp(tsize, C) ? 3 : 1;
 }
 
-inline int ln_mlp_kernels(int tsize, int C, int M) {
-  return wide_mlp(tsize, C, M) ? 3 : 1;
-}
-
-// The wide path's scratch, one array: xn (R, C), then h (R, M), bf16.
-inline size_t wide_mlp_scratch_bytes(int tsize, int R, int C, int M) {
-  return wide_mlp(tsize, C, M) ? size_t(R) * (C + M) * 2 : 0;
+// The three-kernel path's scratch, one array of the working dtype: xn
+// (R, C), then h (R, M).
+inline size_t split_mlp_scratch_bytes(int tsize, int R, int C, int M) {
+  return split_mlp(tsize, C) ? size_t(R) * (C + M) * tsize : 0;
 }
 
 // The LayerNorm pass (ln_rows_body): one warp per row, its partial sums
@@ -266,27 +235,16 @@ inline int cc_tile(int R, int N, int sms) {
   return 11;
 }
 
-// Rows of one ln_mlp block: the 64-row tile up to C = 384, else 32 rows.
-inline int ln_mlp_rows(int C) {
-  return C <= kMaxC ? NarrowTile::BM : WideTile::BM;
+// In bf16 (f32 takes cc_gemm_body's tiles, as the attention half).
+inline size_t ln_mlp_smem_bytes(int C) {
+  return split_mlp(2, C) ? tc_gemm_smem_bytes()
+                     : ring_common(C, 0) + ring_mlp_scratch();
 }
 
-inline size_t ln_mlp_smem_bytes(int C, int M, int tsize) {
-  if (wide_mlp(tsize, C, M)) return tc_gemm_smem_bytes();
-  if (use_tc(tsize, C, 16, M)) return ring_common(C, 0) + ring_mlp_scratch();
-  const int BM = ln_mlp_rows(C);
-  return common_smem(BM, C, tsize) + mlp_scratch(BM, tsize);
-}
-
-inline size_t block_smem_bytes(int C, int H, int L, int M, int tsize) {
+inline size_t block_smem_bytes(int C, int H, int L) {
   const int D = C / H;
-  if (use_tc(tsize, C, D, M)) {
-    const size_t a = ring_attn_scratch(D, L), m = ring_mlp_scratch();
-    return ring_common(C, D) + (a > m ? a : m);
-  }
-  const int BM = NarrowTile::BM;
-  const size_t a = attn_scratch(BM, D, L, tsize), m = mlp_scratch(BM, tsize);
-  return common_smem(BM, C, tsize) + (a > m ? a : m);
+  const size_t a = ring_attn_scratch(D, L), m = ring_mlp_scratch();
+  return ring_common(C, D) + (a > m ? a : m);
 }
 
 // Rows a block of a whole-track kernel owns out of a BM-row tile.
@@ -337,21 +295,24 @@ inline size_t attn_smem_bytes(int C, int H, int L, int tsize) {
 }
 
 // 0 when the kernels take these shapes, else a negative code naming the
-// first violated limit.
+// first violated limit; -8: a head width or hidden size that the 16-wide
+// mma tiles do not divide.
 inline int check_mlp_shape(int R, int C, int M) {
   if (R < 1) return -1;
   if (C < 16 || C > kMaxWideC || C % 16 != 0) return -2;
   if (M < 1) return -3;
+  if (M % 16 != 0) return -8;
   return 0;
 }
 
 inline int check_block_shape(int R, int C, int M, int L, int H) {
-  const int e = check_mlp_shape(R, C, M);
-  if (e) return e;
-  if (C > kMaxC) return -2;
+  if (R < 1) return -1;
+  if (C < 16 || C > kMaxC || C % 16 != 0) return -2;
+  if (M < 1) return -3;
   if (L < 1 || L > kMaxL) return -4;
   if (R % L != 0) return -5;
   if (H < 1 || C % H != 0 || C / H > kMaxD) return -6;
+  if ((C / H) % 16 != 0 || M % 16 != 0) return -8;
   return 0;
 }
 
@@ -445,205 +406,6 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
 }
 #endif
 
-// CUDA-core product: acc[i][j] += sum_k A[r][k] * W[n][k] for
-// r = ty + 16 i, n = tx + 16 j: a (16 RI x K) tile in shared memory times
-// the transpose of N rows of a row-major (out, in) weight in global
-// memory. W points at element [0][0] of the slice and ldw is its row
-// stride. Bs stages kBK-deep tiles of W as f32, laid out [k][n]. Begins
-// with a barrier, so callers need none between writing A and calling.
-template <typename T, int RI, int NJ>
-__device__ __forceinline__ void gemm_nt(float (&acc)[RI][NJ], const T* A,
-                                        int lda, const T* __restrict__ W,
-                                        int ldw, int N, int K, float* Bs) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    const int kb = K - k0 < kBK ? K - k0 : kBK;
-    __syncthreads();  // A is written and the previous tile is consumed
-    for (int idx = tid; idx < N * kBK; idx += kThreads) {
-      const int n = idx / kBK, kk = idx - n * kBK;
-      Bs[kk * N + n] = kk < kb ? to_f<T>(W[size_t(n) * ldw + k0 + kk]) : 0.f;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kb; ++kk) {
-      float a[RI];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-        a[i] = to_f<T>(A[size_t(ty + 16 * i) * lda + k0 + kk]);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = tx + 16 * j;
-        if (n < N) {
-          const float b = Bs[kk * N + n];
-#pragma unroll
-          for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
-        }
-      }
-    }
-  }
-}
-
-// Row statistics of a BM-row tile: given each thread's partial sums part[i]
-// of rows ty + 16 i, leaves the row sums divided by C in stat[2r + slot].
-template <int BM>
-__device__ __forceinline__ void row_reduce(const float* part, int C,
-                                           float* stat, int slot, float* red) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i) red[(ty + 16 * i) * 16 + tx] = part[i];
-  __syncthreads();
-  if (tid < BM) {
-    float s = 0.f;
-    for (int t = 0; t < 16; ++t) s += red[tid * 16 + t];
-    stat[2 * tid + slot] = s / C;
-  }
-  __syncthreads();
-}
-
-// LayerNorm (no affine, eps 1e-6) of the register tile v (its first C
-// columns) into the A operand xa, rounded to T. Leaves the f32 mean and
-// rstd of row r in stat[2r], stat[2r+1]. Two passes, as jnp.var.
-template <typename T, class TL>
-__device__ __forceinline__ void layer_norm_tile(
-    const float (&v)[TL::RI][TL::NJ], int C, T* xa, int lda, float* stat,
-    float* red) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float part[TL::RI];
-#pragma unroll
-  for (int i = 0; i < TL::RI; ++i) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < TL::NJ; ++j)
-      if (tx + 16 * j < C) s += v[i][j];
-    part[i] = s;
-  }
-  row_reduce<TL::BM>(part, C, stat, 0, red);
-#pragma unroll
-  for (int i = 0; i < TL::RI; ++i) {
-    const float mean = stat[2 * (ty + 16 * i)];
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < TL::NJ; ++j)
-      if (tx + 16 * j < C) {
-        const float d = v[i][j] - mean;
-        s += d * d;
-      }
-    part[i] = s;
-  }
-  row_reduce<TL::BM>(part, C, stat, 1, red);
-  if (tid < TL::BM) stat[2 * tid + 1] = rsqrtf(stat[2 * tid + 1] + 1e-6f);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < TL::RI; ++i) {
-    const int r = ty + 16 * i;
-    const float mean = stat[2 * r], rstd = stat[2 * r + 1];
-#pragma unroll
-    for (int j = 0; j < TL::NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < C) xa[r * lda + c] = from_f<T>((v[i][j] - mean) * rstd);
-    }
-  }
-}
-
-// Rows [row0, row0 + rows) of the (R, C) input into the register tile;
-// rows past the end read as 0.
-template <typename T, class TL>
-__device__ __forceinline__ void load_tile(float (&v)[TL::RI][TL::NJ],
-                                          const T* __restrict__ x, int row0,
-                                          int rows, int C) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < TL::RI; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < TL::NJ; ++j) {
-      const int c = tx + 16 * j;
-      v[i][j] = (r < rows && c < C) ? to_f<T>(x[size_t(row0 + r) * C + c])
-                                    : 0.f;
-    }
-  }
-}
-
-template <typename T, class TL>
-__device__ __forceinline__ void store_tile(const float (&v)[TL::RI][TL::NJ],
-                                           const T* __restrict__ bias,
-                                           T* __restrict__ out, int row0,
-                                           int rows, int C) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < TL::RI; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < TL::NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < C)
-        out[size_t(row0 + r) * C + c] = from_f<T>(v[i][j] + to_f<T>(bias[c]));
-    }
-  }
-}
-
-struct Smem {
-  void* xa;       // [BM][lda] A operand (normalized activations)
-  float* Y;       // [kBK][max(C, kMC)] staged weight tile
-  float* stat;    // [BM][2]
-  float* red;     // [BM][16]
-  unsigned char* scratch;
-};
-
-template <typename T, class TL>
-__device__ __forceinline__ Smem carve(unsigned char* smem, int C) {
-  const int tsize = sizeof(T);
-  const int bs_width = C > kMC ? C : kMC;
-  Smem s;
-  unsigned char* p = smem;
-  s.xa = p;
-  p += align_up(size_t(TL::BM) * a_stride(C, tsize) * tsize);
-  s.Y = reinterpret_cast<float*>(p);
-  p += align_up(size_t(kBK) * bs_width * 4);
-  s.stat = reinterpret_cast<float*>(p);
-  p += align_up(size_t(TL::BM) * 2 * 4);
-  s.red = reinterpret_cast<float*>(p);
-  p += align_up(size_t(TL::BM) * 16 * 4);
-  s.scratch = p;
-  return s;
-}
-
-// The MLP half shared by both kernels on the CUDA cores: acc holds the
-// residual base (f32, one row per tile row); on return it holds
-// base + fc2(gelu(fc1(LN(base)))) without the fc2 bias.
-template <typename T, class TL>
-__device__ __forceinline__ void mlp_half(float (&acc)[TL::RI][TL::NJ], int C,
-                                         int M, const T* __restrict__ w1,
-                                         const T* __restrict__ b1,
-                                         const T* __restrict__ w2,
-                                         const Smem& s) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  T* xa = static_cast<T*>(s.xa);
-  const int lda = a_stride(C, sizeof(T));
-  T* hb = reinterpret_cast<T*>(s.scratch);  // [BM][kMC]
-  layer_norm_tile<T, TL>(acc, C, xa, lda, s.stat, s.red);
-  for (int m0 = 0; m0 < M; m0 += kMC) {
-    const int mc = M - m0 < kMC ? M - m0 : kMC;
-    float h[TL::RI][kMC / 16];
-#pragma unroll
-    for (int i = 0; i < TL::RI; ++i)
-#pragma unroll
-      for (int j = 0; j < kMC / 16; ++j) h[i][j] = 0.f;
-    gemm_nt<T, TL::RI, kMC / 16>(h, xa, lda, w1 + size_t(m0) * C, C, mc, C,
-                                 s.Y);
-#pragma unroll
-    for (int i = 0; i < TL::RI; ++i)
-#pragma unroll
-      for (int j = 0; j < kMC / 16; ++j) {
-        const int n = tx + 16 * j;
-        if (n < mc)
-          hb[(ty + 16 * i) * kMC + n] =
-              from_f<T>(gelu_erf(h[i][j] + to_f<T>(b1[m0 + n])));
-      }
-    gemm_nt<T, TL::RI, TL::NJ>(acc, hb, kMC, w2 + m0, M, C, mc, s.Y);
-  }
-}
-
 // One head's attention within each track of a BM-row tile: q|k|v of the
 // head in qkv [BM][3D] (rounded to T), f32 scores in sc [BM][L]; the
 // output, rounded to T, goes to o[r * ldo + e] (rows past the block's
@@ -692,41 +454,10 @@ __device__ __forceinline__ void head_attention(const T* qkv, float* sc,
   }
 }
 
-// q | k | v of head h for the BM rows of A (lda) into qkv [BM][3D], rounded
-// to T, on the CUDA cores as three products of D columns (kNJD column
-// slots per thread); Y is the staged weight tile.
-template <typename T, int BM>
-__device__ __forceinline__ void head_qkv(T* qkv, const T* A, int lda,
-                                         const T* __restrict__ w_in,
-                                         const T* __restrict__ b_in, int C,
-                                         int D, int h, float* Y) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  for (int part = 0; part < 3; ++part) {
-    float t[BM / 16][kNJD];
-#pragma unroll
-    for (int i = 0; i < BM / 16; ++i)
-#pragma unroll
-      for (int j = 0; j < kNJD; ++j) t[i][j] = 0.f;
-    const int wrow = part * C + h * D;
-    gemm_nt<T, BM / 16, kNJD>(t, A, lda, w_in + size_t(wrow) * C, C, D, C,
-                              Y);
-#pragma unroll
-    for (int i = 0; i < BM / 16; ++i)
-#pragma unroll
-      for (int j = 0; j < kNJD; ++j) {
-        const int n = tx + 16 * j;
-        if (n < D)
-          qkv[(ty + 16 * i) * 3 * D + part * D + n] =
-              from_f<T>(t[i][j] + to_f<T>(b_in[wrow + n]));
-      }
-  }
-  __syncthreads();
-}
-
 // ------------------------------------------------------------ the ring path
 //
-// The bf16 tensor-core instantiations of the block kernel and of ln_mlp at
-// C <= 384 (64-row tiles). Warp w of 8, lane l, g = l / 4, t = l % 4.
+// The block kernel and ln_mlp at C <= 384, bf16 (64-row tiles). Warp w of
+// 8, lane l, g = l / 4, t = l % 4.
 //
 // Every product reads its weight operand from a ring of kStages k-slabs in
 // shared memory: N weight rows (a torch Linear's (out, in) rows are
@@ -1160,20 +891,23 @@ __device__ __forceinline__ void ring_mlp(XAcc& x1, XTile xt, int C, int M,
   }
 }
 
-// fused_transformer_block on the ring path (see block_body).
-template <typename T>
-__device__ __forceinline__ void block_body_ring(
-    const T* __restrict__ x, const T* __restrict__ w_in,
-    const T* __restrict__ b_in, const T* __restrict__ w_out,
-    const T* __restrict__ b_out, const T* __restrict__ w1,
-    const T* __restrict__ b1, const T* __restrict__ w2,
-    const T* __restrict__ b2, T* __restrict__ out, int R, int C, int M,
+// fused_transformer_block on rows of (R, C), attention within each group
+// of L consecutive rows (one track), on the ring path:
+//   xn = LN(x); x1 = xn + out_proj(MHA(xn)); out = x1 + MLP(LN(x1)).
+// w_in (3C, C) packed q|k|v, b_in (3C), w_out (C, C), b_out (C) as
+// torch.nn.MultiheadAttention; w1, b1, w2, b2 as ln_mlp_body.
+__device__ __forceinline__ void block_body(
+    const bf* __restrict__ x, const bf* __restrict__ w_in,
+    const bf* __restrict__ b_in, const bf* __restrict__ w_out,
+    const bf* __restrict__ b_out, const bf* __restrict__ w1,
+    const bf* __restrict__ b1, const bf* __restrict__ w2,
+    const bf* __restrict__ b2, bf* __restrict__ out, int R, int C, int M,
     int L, int H, unsigned char* smem) {
   constexpr int BM = NarrowTile::BM;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int D = C / H, lda = C + kPad, ldo = D + kPad;
   unsigned char* p = smem;
-  T* xa = reinterpret_cast<T*>(p);
+  bf* xa = reinterpret_cast<bf*>(p);
   p += align_up(size_t(BM) * lda * 2);
   unsigned char* ring = p;
   p += kStages * ring_stage_bytes(C, D);
@@ -1181,14 +915,14 @@ __device__ __forceinline__ void block_body_ring(
   p += align_up(size_t(BM) * 2 * 4);
   float* red = reinterpret_cast<float*>(p);
   p += align_up(size_t(BM) * 32 * 4);
-  T* qkv = reinterpret_cast<T*>(p);  // [BM][3D]
+  bf* qkv = reinterpret_cast<bf*>(p);  // [BM][3D]
   float* sc = reinterpret_cast<float*>(p + align_up(size_t(BM) * 3 * D * 2));
-  T* oh = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(sc)
+  bf* oh = reinterpret_cast<bf*>(reinterpret_cast<unsigned char*>(sc)
                                + align_up(size_t(BM) * L * 4));  // [BM][ldo]
-  T* hb = reinterpret_cast<T*>(p);  // [BM][kRC + kPad], aliases the above
+  bf* hb = reinterpret_cast<bf*>(p);  // [BM][kRC + kPad], aliases them
 
-  const WeightStream<T> ws =
-      make_stream<T>(w_in, w_out, w1, w2, ring, C, D, H, M);
+  const WeightStream<bf> ws =
+      make_stream<bf>(w_in, w_out, w1, w2, ring, C, D, H, M);
   for (int s = 0; s < kStages - 1; ++s) ws.issue(s);
 
   const int BMr = block_rows(L);
@@ -1196,8 +930,8 @@ __device__ __forceinline__ void block_body_ring(
   const int rows = R - row0 < BMr ? R - row0 : BMr;
   const XTile xt = x_tile(C);
   XAcc x1;
-  ring_load<T>(x1, xt, x, row0, rows, C);
-  ring_layer_norm<T>(x1, xt, C, xa, lda, stat, red);
+  ring_load<bf>(x1, xt, x, row0, rows, C);
+  ring_layer_norm<bf>(x1, xt, C, xa, lda, stat, red);
   // x1 starts as the f32 normalized input plus the out-proj bias (the
   // residual base is the NORMALIZED input)
 #pragma unroll
@@ -1210,7 +944,7 @@ __device__ __forceinline__ void block_body_ring(
         const int c = 8 * (xt.nt0 + j) + 2 * (lane & 3) + (e & 1);
         if (j < xt.nT)
           x1[i][j][e] = (x1[i][j][e] - stat[2 * r]) * stat[2 * r + 1]
-                        + to_f<T>(b_out[c]);
+                        + to_f<bf>(b_out[c]);
       }
 
   int g = 0;
@@ -1234,31 +968,33 @@ __device__ __forceinline__ void block_body_ring(
         const int r = 16 * (w & 3) + (lane >> 2) + 8 * (e >> 1);
         if (j < qT)
           qkv[r * 3 * D + n + (e & 1)] =
-              from_f<T>(q[0][j][e] + to_f<T>(b_in[brow + (e & 1)]));
+              from_f<bf>(q[0][j][e] + to_f<bf>(b_in[brow + (e & 1)]));
       }
     }
     __syncthreads();
-    ring_head_attention<T, BM>(qkv, sc, oh, ldo, rows, L, D, scale);
+    ring_head_attention<bf, BM>(qkv, sc, oh, ldo, rows, L, D, scale);
     // x1 += o_h @ w_out[:, hD:(h+1)D]^T
     ring_product<4, kXT>(x1, oh, ldo, 0, xt.nt0, xt.nT, D, ws.bo, ws.no, g,
                          ws);
   }
 
-  ring_mlp<T>(x1, xt, C, M, b1, xa, lda, hb, stat, red, g, ws);
-  ring_store<T>(x1, xt, b2, out, row0, rows, C);
+  ring_mlp<bf>(x1, xt, C, M, b1, xa, lda, hb, stat, red, g, ws);
+  ring_store<bf>(x1, xt, b2, out, row0, rows, C);
 }
 
-// fused_ln_mlp on the ring path (see ln_mlp_body).
-template <typename T>
-__device__ __forceinline__ void ln_mlp_body_ring(
-    const T* __restrict__ x, const T* __restrict__ w1,
-    const T* __restrict__ b1, const T* __restrict__ w2,
-    const T* __restrict__ b2, T* __restrict__ out, int R, int C, int M,
+// fused_ln_mlp on the ring path: out = x + fc2(gelu(fc1(LN(x)))) on rows
+// of (R, C), C <= 384, NarrowTile::BM rows per block. w1 (M, C), b1 (M),
+// w2 (C, M), b2 (C): torch Linear layout (out, in). (384 < C <= 768 is the
+// wide path's three kernels instead.)
+__device__ __forceinline__ void ln_mlp_body(
+    const bf* __restrict__ x, const bf* __restrict__ w1,
+    const bf* __restrict__ b1, const bf* __restrict__ w2,
+    const bf* __restrict__ b2, bf* __restrict__ out, int R, int C, int M,
     unsigned char* smem) {
   constexpr int BM = NarrowTile::BM;
   const int lda = C + kPad;
   unsigned char* p = smem;
-  T* xa = reinterpret_cast<T*>(p);
+  bf* xa = reinterpret_cast<bf*>(p);
   p += align_up(size_t(BM) * lda * 2);
   unsigned char* ring = p;
   p += kStages * ring_stage_bytes(C, 0);
@@ -1266,121 +1002,20 @@ __device__ __forceinline__ void ln_mlp_body_ring(
   p += align_up(size_t(BM) * 2 * 4);
   float* red = reinterpret_cast<float*>(p);
   p += align_up(size_t(BM) * 32 * 4);
-  T* hb = reinterpret_cast<T*>(p);
+  bf* hb = reinterpret_cast<bf*>(p);
 
-  const WeightStream<T> ws =
-      make_stream<T>(nullptr, nullptr, w1, w2, ring, C, 0, 0, M);
+  const WeightStream<bf> ws =
+      make_stream<bf>(nullptr, nullptr, w1, w2, ring, C, 0, 0, M);
   for (int s = 0; s < kStages - 1; ++s) ws.issue(s);
 
   const int row0 = blockIdx.x * BM;
   const int rows = R - row0 < BM ? R - row0 : BM;
   const XTile xt = x_tile(C);
   XAcc x1;
-  ring_load<T>(x1, xt, x, row0, rows, C);
+  ring_load<bf>(x1, xt, x, row0, rows, C);
   int g = 0;
-  ring_mlp<T>(x1, xt, C, M, b1, xa, lda, hb, stat, red, g, ws);
-  ring_store<T>(x1, xt, b2, out, row0, rows, C);
-}
-
-// The block kernel on the CUDA cores (f32, and bf16 shapes the 16-wide
-// tensor-core tiles do not divide); see block_body.
-template <typename T>
-__device__ __forceinline__ void block_body_cc(
-    const T* __restrict__ x, const T* __restrict__ w_in,
-    const T* __restrict__ b_in, const T* __restrict__ w_out,
-    const T* __restrict__ b_out, const T* __restrict__ w1,
-    const T* __restrict__ b1, const T* __restrict__ w2,
-    const T* __restrict__ b2, T* __restrict__ out, int R, int C, int M,
-    int L, int H, unsigned char* smem) {
-  using TL = NarrowTile;
-  constexpr int BM = TL::BM;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int D = C / H;
-  const Smem s = carve<T, TL>(smem, C);
-  const int BMr = block_rows(L);
-  const int row0 = blockIdx.x * BMr;
-  const int rows = R - row0 < BMr ? R - row0 : BMr;
-  const int lda = a_stride(C, sizeof(T));
-  T* xa = static_cast<T*>(s.xa);
-  T* qkv = reinterpret_cast<T*>(s.scratch);  // [BM][3D]
-  float* sc = reinterpret_cast<float*>(
-      s.scratch + align_up(size_t(BM) * 3 * D * sizeof(T)));  // [BM][L]
-  T* oh = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(sc)
-                               + align_up(size_t(BM) * L * 4));  // [BM][D]
-  const float scale = 1.0f / sqrtf(float(D));
-
-  float acc[TL::RI][TL::NJ];
-  load_tile<T, TL>(acc, x, row0, rows, C);
-  layer_norm_tile<T, TL>(acc, C, xa, lda, s.stat, s.red);
-  // x1 starts as the f32 normalized input plus the out-proj bias (the
-  // residual base is the NORMALIZED input)
-#pragma unroll
-  for (int i = 0; i < TL::RI; ++i) {
-    const int r = ty + 16 * i;
-    const float mean = s.stat[2 * r], rstd = s.stat[2 * r + 1];
-#pragma unroll
-    for (int j = 0; j < TL::NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < C) acc[i][j] = (acc[i][j] - mean) * rstd + to_f<T>(b_out[c]);
-    }
-  }
-
-  for (int h = 0; h < H; ++h) {
-    head_qkv<T, BM>(qkv, xa, lda, w_in, b_in, C, D, h, s.Y);
-    head_attention<T, BM>(qkv, sc, oh, D, rows, L, D, scale);
-    // x1 += o_h @ w_out[:, hD:(h+1)D]^T
-    gemm_nt<T, TL::RI, TL::NJ>(acc, oh, D, w_out + h * D, C, C, D, s.Y);
-  }
-
-  mlp_half<T, TL>(acc, C, M, w1, b1, w2, s);
-  store_tile<T, TL>(acc, b2, out, row0, rows, C);
-}
-
-// fused_transformer_block on rows of (R, C), attention within each group
-// of L consecutive rows (one track):
-//   xn = LN(x); x1 = xn + out_proj(MHA(xn)); out = x1 + MLP(LN(x1)).
-// w_in (3C, C) packed q|k|v, b_in (3C), w_out (C, C), b_out (C) as
-// torch.nn.MultiheadAttention; w1, b1, w2, b2 as ln_mlp_body. The
-// tensor-core instantiation takes the ring path.
-template <typename T, bool TC>
-__device__ __forceinline__ void block_body(
-    const T* __restrict__ x, const T* __restrict__ w_in,
-    const T* __restrict__ b_in, const T* __restrict__ w_out,
-    const T* __restrict__ b_out, const T* __restrict__ w1,
-    const T* __restrict__ b1, const T* __restrict__ w2,
-    const T* __restrict__ b2, T* __restrict__ out, int R, int C, int M,
-    int L, int H, unsigned char* smem) {
-  if constexpr (TC)
-    block_body_ring<T>(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R,
-                       C, M, L, H, smem);
-  else
-    block_body_cc<T>(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R, C,
-                     M, L, H, smem);
-}
-
-// fused_ln_mlp: out = x + fc2(gelu(fc1(LN(x)))) on rows of (R, C), TL::BM
-// rows per block. w1 (M, C), b1 (M), w2 (C, M), b2 (C): torch Linear
-// layout (out, in). The 64-row tensor-core instantiation takes the ring
-// path; the CUDA-core one keeps the whole-row tile. (bf16 at C > 384 on
-// the tensor cores is the wide path's three kernels instead.)
-template <typename T, bool TC, class TL>
-__device__ __forceinline__ void ln_mlp_body(
-    const T* __restrict__ x, const T* __restrict__ w1,
-    const T* __restrict__ b1, const T* __restrict__ w2,
-    const T* __restrict__ b2, T* __restrict__ out, int R, int C, int M,
-    unsigned char* smem) {
-  if constexpr (TC) {
-    static_assert(TL::MAXC == kMaxC, "the ring path holds 64 x 384");
-    ln_mlp_body_ring<T>(x, w1, b1, w2, b2, out, R, C, M, smem);
-  } else {
-    const Smem s = carve<T, TL>(smem, C);
-    const int row0 = blockIdx.x * TL::BM;
-    const int rows = R - row0 < TL::BM ? R - row0 : TL::BM;
-    float acc[TL::RI][TL::NJ];
-    load_tile<T, TL>(acc, x, row0, rows, C);
-    mlp_half<T, TL>(acc, C, M, w1, b1, w2, s);
-    store_tile<T, TL>(acc, b2, out, row0, rows, C);
-  }
+  ring_mlp<bf>(x1, xt, C, M, b1, xa, lda, hb, stat, red, g, ws);
+  ring_store<bf>(x1, xt, b2, out, row0, rows, C);
 }
 
 // ------------------------------------------- the wide MLP and attention paths
@@ -1539,7 +1174,6 @@ __device__ __forceinline__ void tc_gemm_body(
     const __nv_bfloat16* __restrict__ A, int lda,
     const __nv_bfloat16* __restrict__ W, int ldw, int R, int N, int K,
     const Epi<__nv_bfloat16>& epi, unsigned char* smem) {
-  using bf = __nv_bfloat16;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int wm = w >> 2, wn = w & 3;
   const int row0 = blockIdx.y * kGM, col0 = blockIdx.x * kGN;

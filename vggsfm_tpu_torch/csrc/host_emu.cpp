@@ -9,18 +9,19 @@
 
 namespace {
 
-template <typename T, bool TC, class TL>
-int run_ln_mlp_tile(const void* x, const void* w1, const void* b1,
-                    const void* w2, const void* b2, void* out, int R, int C,
-                    int M) {
-  const size_t smem = vf::ln_mlp_smem_bytes(C, M, sizeof(T));
-  const int grid = (R + TL::BM - 1) / TL::BM;
-  emu_launch(grid, vf::kThreads, smem, [&](unsigned char* s) {
-    vf::ln_mlp_body<T, TC, TL>(
-        static_cast<const T*>(x), static_cast<const T*>(w1),
-        static_cast<const T*>(b1), static_cast<const T*>(w2),
-        static_cast<const T*>(b2), static_cast<T*>(out), R, C, M, s);
-  });
+using bf = __nv_bfloat16;
+
+// The ring path's ln_mlp (C <= 384).
+int run_ln_mlp(const void* x, const void* w1, const void* b1, const void* w2,
+               const void* b2, void* out, int R, int C, int M) {
+  emu_launch(vf::cdiv(R, vf::NarrowTile::BM), vf::kThreads,
+             vf::ln_mlp_smem_bytes(C), [&](unsigned char* s) {
+               vf::ln_mlp_body(
+                   static_cast<const bf*>(x), static_cast<const bf*>(w1),
+                   static_cast<const bf*>(b1), static_cast<const bf*>(w2),
+                   static_cast<const bf*>(b2), static_cast<bf*>(out), R, C, M,
+                   s);
+             });
   return 0;
 }
 
@@ -36,7 +37,6 @@ void run_ln_rows(const void* x, void* xn, float* stats, int R, int C) {
 int run_wide_mlp(const void* x, const void* w1, const void* b1,
                  const void* w2, const void* b2, void* out, void* scratch,
                  int R, int C, int M) {
-  using bf = __nv_bfloat16;
   if (!scratch) return -9;
   void* xn = scratch;
   void* h = static_cast<bf*>(scratch) + size_t(R) * C;
@@ -60,23 +60,6 @@ int run_wide_mlp(const void* x, const void* w1, const void* b1,
   return 0;
 }
 
-template <typename T, bool TC>
-int run_ln_mlp(const void* x, const void* w1, const void* b1, const void* w2,
-               const void* b2, void* out, void* scratch, int R, int C,
-               int M) {
-  if constexpr (TC) {
-    if (C > vf::kMaxC)
-      return run_wide_mlp(x, w1, b1, w2, b2, out, scratch, R, C, M);
-    return run_ln_mlp_tile<T, true, vf::NarrowTile>(x, w1, b1, w2, b2, out, R,
-                                                    C, M);
-  }
-  if (C <= vf::kMaxC)
-    return run_ln_mlp_tile<T, false, vf::NarrowTile>(x, w1, b1, w2, b2, out,
-                                                     R, C, M);
-  return run_ln_mlp_tile<T, false, vf::WideTile>(x, w1, b1, w2, b2, out, R, C,
-                                                 M);
-}
-
 template <typename T, int RT, int CT, int KIND>
 void run_cc_gemm_tile(const T* A, const T* W, int R, int N, int K,
                       const vf::Epi<T>& epi) {
@@ -96,6 +79,28 @@ void run_cc_gemm(const T* A, const T* W, int R, int N, int K,
     run_cc_gemm_tile<T, 4, 1, KIND>(A, W, R, N, K, epi);
   else
     run_cc_gemm_tile<T, 1, 1, KIND>(A, W, R, N, K, epi);
+}
+
+// The f32 MLP path: the LayerNorm pass, then the two products on
+// cc_gemm_body at the tiles an H100 SXM's 132 SMs give (cc_tile).
+int run_cc_mlp(const void* x, const void* w1, const void* b1, const void* w2,
+               const void* b2, void* out, void* scratch, int R, int C,
+               int M) {
+  constexpr int kSms = 132;
+  if (!scratch) return -9;
+  float* xn = static_cast<float*>(scratch);
+  float* h = xn + size_t(R) * C;
+  run_ln_rows<float>(x, xn, nullptr, R, C);
+  const vf::Epi<float> fc1{static_cast<const float*>(b1), nullptr, nullptr,
+                           h, M};
+  run_cc_gemm<float, vf::kEpiGelu>(xn, static_cast<const float*>(w1), R, M,
+                                   C, fc1, kSms);
+  const vf::Epi<float> fc2{static_cast<const float*>(b2),
+                           static_cast<const float*>(x), nullptr,
+                           static_cast<float*>(out), C};
+  run_cc_gemm<float, vf::kEpiResid>(h, static_cast<const float*>(w2), R, C, M,
+                                    fc2, kSms);
+  return 0;
 }
 
 template <typename T, int BM>
@@ -136,22 +141,20 @@ int run_attn(const void* x, const void* w_in, const void* b_in,
   return 0;
 }
 
-template <typename T, bool TC>
 int run_block(const void* x, const void* w_in, const void* b_in,
               const void* w_out, const void* b_out, const void* w1,
               const void* b1, const void* w2, const void* b2, void* out,
               int R, int C, int M, int L, int H) {
-  const size_t smem = vf::block_smem_bytes(C, H, L, M, sizeof(T));
-  const int br = vf::block_rows(L);
-  const int grid = (R + br - 1) / br;
-  emu_launch(grid, vf::kThreads, smem, [&](unsigned char* s) {
-    vf::block_body<T, TC>(
-        static_cast<const T*>(x), static_cast<const T*>(w_in),
-        static_cast<const T*>(b_in), static_cast<const T*>(w_out),
-        static_cast<const T*>(b_out), static_cast<const T*>(w1),
-        static_cast<const T*>(b1), static_cast<const T*>(w2),
-        static_cast<const T*>(b2), static_cast<T*>(out), R, C, M, L, H, s);
-  });
+  emu_launch(vf::cdiv(R, vf::block_rows(L)), vf::kThreads,
+             vf::block_smem_bytes(C, H, L), [&](unsigned char* s) {
+               vf::block_body(
+                   static_cast<const bf*>(x), static_cast<const bf*>(w_in),
+                   static_cast<const bf*>(b_in), static_cast<const bf*>(w_out),
+                   static_cast<const bf*>(b_out), static_cast<const bf*>(w1),
+                   static_cast<const bf*>(b1), static_cast<const bf*>(w2),
+                   static_cast<const bf*>(b2), static_cast<bf*>(out), R, C, M,
+                   L, H, s);
+             });
   return 0;
 }
 
@@ -216,21 +219,19 @@ int vf_fused_ln_mlp(int dtype, const void* x, const void* w1, const void* b1,
   const int bad = vf::check_mlp_shape(R, C, M);
   if (bad) return bad;
   if (dtype == 0)
-    return run_ln_mlp<float, false>(x, w1, b1, w2, b2, out, nullptr, R, C, M);
+    return run_cc_mlp(x, w1, b1, w2, b2, out, scratch, R, C, M);
   if (dtype != 1) return -100;
-  if (vf::use_tc(2, C, 16, M))
-    return run_ln_mlp<__nv_bfloat16, true>(x, w1, b1, w2, b2, out, scratch, R,
-                                           C, M);
-  return run_ln_mlp<__nv_bfloat16, false>(x, w1, b1, w2, b2, out, nullptr, R,
-                                          C, M);
+  if (vf::split_mlp(2, C))
+    return run_wide_mlp(x, w1, b1, w2, b2, out, scratch, R, C, M);
+  return run_ln_mlp(x, w1, b1, w2, b2, out, R, C, M);
 }
 
-int vf_ln_mlp_kernels(int dtype, int C, int M) {
-  return vf::ln_mlp_kernels(dtype == 1 ? 2 : 4, C, M);
+int vf_ln_mlp_kernels(int dtype, int C) {
+  return vf::ln_mlp_kernels(dtype == 1 ? 2 : 4, C);
 }
 
 size_t vf_ln_mlp_scratch_bytes(int dtype, int R, int C, int M) {
-  return vf::wide_mlp_scratch_bytes(dtype == 1 ? 2 : 4, R, C, M);
+  return vf::split_mlp_scratch_bytes(dtype == 1 ? 2 : 4, R, C, M);
 }
 
 int vf_fused_block(int dtype, const void* x, const void* w_in,
@@ -240,15 +241,9 @@ int vf_fused_block(int dtype, const void* x, const void* w_in,
                    int H) {
   const int bad = vf::check_block_shape(R, C, M, L, H);
   if (bad) return bad;
-  if (dtype == 0)
-    return run_block<float, false>(x, w_in, b_in, w_out, b_out, w1, b1, w2,
-                                   b2, out, R, C, M, L, H);
   if (dtype != 1) return -100;
-  if (vf::use_tc(2, C, C / H, M))
-    return run_block<__nv_bfloat16, true>(x, w_in, b_in, w_out, b_out, w1, b1,
-                                          w2, b2, out, R, C, M, L, H);
-  return run_block<__nv_bfloat16, false>(x, w_in, b_in, w_out, b_out, w1, b1,
-                                         w2, b2, out, R, C, M, L, H);
+  return run_block(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2, out, R, C, M,
+                   L, H);
 }
 
 int vf_fused_ln_attn(int dtype, const void* x, const void* w_in,
@@ -271,13 +266,11 @@ size_t vf_attn_scratch_bytes(int dtype, int R, int C) {
 
 int vf_cc_tile(int R, int N, int sms) { return vf::cc_tile(R, N, sms); }
 
-size_t vf_block_smem_bytes(int C, int H, int L, int M, int tsize) {
-  return vf::block_smem_bytes(C, H, L, M, tsize);
+size_t vf_block_smem_bytes(int C, int H, int L) {
+  return vf::block_smem_bytes(C, H, L);
 }
 
-size_t vf_ln_mlp_smem_bytes(int C, int M, int tsize) {
-  return vf::ln_mlp_smem_bytes(C, M, tsize);
-}
+size_t vf_ln_mlp_smem_bytes(int C) { return vf::ln_mlp_smem_bytes(C); }
 
 size_t vf_attn_smem_bytes(int C, int H, int L, int tsize) {
   return vf::attn_smem_bytes(C, H, L, tsize);
@@ -289,7 +282,6 @@ size_t vf_attn_smem_bytes(int C, int H, int L, int tsize) {
 // ldmatrix.x4 fragments and two mma.sync m16n8k16 per 16-deep step, and
 // d8 = A W[8:16]^T (16 x 8) through ldmatrix.x2. Row-major outputs.
 int vf_emu_warp_mma(const void* a, const void* w, float* d, float* d8) {
-  using bf = __nv_bfloat16;
   constexpr int ld = 32 + vf::kPad;
   emu_launch(1, 32, 2 * 16 * ld * sizeof(bf), [&](unsigned char* s) {
     bf* As = reinterpret_cast<bf*>(s);

@@ -17,6 +17,11 @@ tracker), while f32 tokens meet bf16-rounded weights in f32 (the camera
 former's self-attention and trunk blocks). Every such cast goes through
 `cast_weight`, which counts the bytes it writes while the tracer records
 (``weights.cast_bytes``, utils/trace.py).
+
+Which blocks and tails run on the fused former kernels is decided by the
+predicates of ops/fused_mlp.py alone (`block_route_takes`,
+`mlp_route_takes`, `ln_attn_takes`), from the compute dtype and the
+shapes; everything else runs the same function plain.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vggsfm_tpu_torch.ops.fused_mlp import (
-    block_kernel_takes,
+    block_route_takes,
     fused_ln_attn,
     fused_ln_mlp,
     fused_ln_mlp_ref,
@@ -153,7 +158,7 @@ class Mlp(nn.Module):
     def forward(self, x, ln_residual: bool = False):
         """Plain MLP — or, with ``ln_residual``, the transformer tail
         ``x + fc2(gelu(fc1(LN(x))))``: the fused_ln_mlp kernel where
-        `mlp_route_takes` the dtype and width, else the same function
+        `mlp_route_takes` the dtype and shape, else the same function
         plain."""
         x = x.to(torch.promote_types(x.dtype, self.dtype))
         w1, b1, w2, b2 = self.packed(x.dtype)
@@ -161,8 +166,8 @@ class Mlp(nn.Module):
             return F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
         lead, C = x.shape[:-1], x.shape[-1]
         x2 = x.reshape(-1, C).contiguous()
-        tail = fused_ln_mlp if mlp_route_takes(x.dtype, C) else \
-            fused_ln_mlp_ref
+        tail = fused_ln_mlp if mlp_route_takes(x.dtype, C, w1.shape[0]) \
+            else fused_ln_mlp_ref
         return tail(x2, w1, b1, w2, b2).reshape(*lead, w2.shape[0])
 
 
@@ -180,14 +185,15 @@ class AttnBlock(nn.Module):
     def forward(self, x):
         B, L, C = x.shape
         x = x.to(torch.promote_types(x.dtype, self.dtype))
-        if block_kernel_takes(C, L, self.attn.num_heads):
+        if block_route_takes(x.dtype, C, L, self.attn.num_heads,
+                             self.mlp.fc1.out_features):
             # the whole block as one fused_transformer_block kernel
             out = fused_transformer_block(
                 x.reshape(B * L, C).contiguous(), *self.attn.packed(x.dtype),
                 *self.mlp.packed(x.dtype), L, self.attn.num_heads)
             return out.reshape(B, L, C)
-        # shapes the block kernel does not take: the two halves, each
-        # through its own kernel where that takes the shape
+        # what the block kernel does not take: the two halves, each
+        # through its own kernel where that takes it
         return self.mlp(self.attn.ln_self_attention(x), ln_residual=True)
 
 

@@ -107,15 +107,15 @@ def _declare(lib, with_stream: bool):
     tail = [vp] if with_stream else []
     lib.vf_fused_ln_mlp.argtypes = [ci] + [vp] * 7 + [ci] * 3 + tail
     lib.vf_fused_ln_mlp.restype = ci
-    lib.vf_ln_mlp_kernels.argtypes = [ci] * 3
+    lib.vf_ln_mlp_kernels.argtypes = [ci] * 2
     lib.vf_ln_mlp_kernels.restype = ci
     lib.vf_ln_mlp_scratch_bytes.argtypes = [ci] * 4
     lib.vf_ln_mlp_scratch_bytes.restype = ctypes.c_size_t
     lib.vf_fused_block.argtypes = [ci] + [vp] * 10 + [ci] * 5 + tail
     lib.vf_fused_block.restype = ci
-    lib.vf_block_smem_bytes.argtypes = [ci] * 5
+    lib.vf_block_smem_bytes.argtypes = [ci] * 3
     lib.vf_block_smem_bytes.restype = ctypes.c_size_t
-    lib.vf_ln_mlp_smem_bytes.argtypes = [ci] * 3
+    lib.vf_ln_mlp_smem_bytes.argtypes = [ci]
     lib.vf_ln_mlp_smem_bytes.restype = ctypes.c_size_t
     lib.vf_fused_ln_attn.argtypes = [ci] + [vp] * 7 + [ci] * 5 + tail
     lib.vf_fused_ln_attn.restype = ci

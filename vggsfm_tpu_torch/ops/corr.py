@@ -21,8 +21,8 @@ sum is f32; the result is rounded once, to the output dtype.
     same signature: a gather of the window's features, f32 sums.
   * Each launch counts in `launch_counts` under the TPU kernel whose
     contract it serves: `corr_sample_pallas_smallc` for C < 128,
-    `corr_sample_pallas` for C >= 128; either route charges `corr_flops`
-    to the FLOP ledger (utils/mfu.py) while a call is counted.
+    `corr_sample_pallas` for C >= 128.
+  * `corr_flops` is the kernel's FLOP formula.
 
 Levels are (F, H_i, W_i, C) views of any strides; the kernel reads the two
 layouts the tracker keeps, NHWC (channel stride 1) and the flat
@@ -42,7 +42,6 @@ import ctypes
 import torch
 
 from vggsfm_tpu_torch.ops import _build, launch_counts
-from vggsfm_tpu_torch.utils import mfu
 
 MAX_C = 2048
 MAX_RADIUS = 7
@@ -53,10 +52,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def corr_flops(F: int, N: int, C: int, radius: int, L: int) -> int:
-    """The FLOPs the FLOP ledger (utils/mfu.py) charges one call: per track
-    and level the (2r+2)^2 dots of C products (what FlopCounterMode counts
-    of the plain version's batched product; the bilinear combine is
-    elementwise)."""
+    """The FLOPs of one call: per track and level the (2r+2)^2 dots of C
+    products (what FlopCounterMode counts of the plain version's batched
+    product; the bilinear combine is elementwise).
+    benchmark/tests/test_bench_work.py holds the benchmark's own copy
+    (benchmark/harness/work.py) to it."""
     return 2 * F * N * L * (2 * radius + 2) ** 2 * C
 
 
@@ -127,15 +127,9 @@ def corr_sample_kernel(levels: list, coords: torch.Tensor,
     CUDA tensors launch the kernel or raise.
     """
     dev = levels[0].device
-    if mfu.counting():
-        mfu.add_kernel_flops(
-            "corr_sample_pallas_smallc" if track_feats.shape[-1] < SMALL_C
-            else "corr_sample_pallas",
-            corr_flops(*coords.shape[:2], track_feats.shape[-1], radius,
-                       len(levels)))
     if dev.type == "cpu":
-        return mfu.plain(corr_sample_plain, levels, coords, track_feats,
-                         radius, out_dtype)
+        return corr_sample_plain(levels, coords, track_feats, radius,
+                                 out_dtype)
     if not 1 <= len(levels) <= MAX_LEVELS:
         raise ValueError(f"corr_sample kernel takes 1 to {MAX_LEVELS} "
                          f"levels; got {len(levels)}")

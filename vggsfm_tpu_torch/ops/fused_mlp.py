@@ -12,18 +12,32 @@ Counterparts of vggsfm_tpu/ops/fused_mlp.py (`fused_transformer_block`,
     rounding points, which the wrapper takes only for CPU tensors;
   * a launch counter (`launch_counts`, shared with ops/corr.py), bumped
     once per kernel launch: one per `fused_transformer_block` call,
-    WIDE_MLP_KERNELS per `fused_ln_mlp` call on the wide path (else one;
-    the library's `vf_ln_mlp_kernels`), ATTN_KERNELS per `fused_ln_attn`
-    call;
-  * a FLOP formula (``*_flops``) that the wrapper charges to the FLOP
-    ledger (utils/mfu.py) on either route, while a call is counted.
+    WIDE_MLP_KERNELS per `fused_ln_mlp` call in f32 and on the wide path
+    (else one; the library's `vf_ln_mlp_kernels`), ATTN_KERNELS per
+    `fused_ln_attn` call;
+  * a FLOP formula (``*_flops``): what FlopCounterMode counts of the
+    plain version, its matrix products.
 
-Routes on the card: `fused_ln_mlp` in bf16 at 384 < C <= 768 (the camera's
-cross-attention tails) runs the wide path, three kernels meeting in bf16
-scratch the wrapper allocates: the LayerNorm pass (xn, R x C), then two
-tensor-core GEMMs with fused epilogues, h = gelu(xn w1^T + b1) (R x M) and
-out = x + (h w2^T + b2). Every other `fused_ln_mlp` is one kernel over
-whole-row tiles. `fused_ln_attn` is four kernels: the LayerNorm pass (the
+The route: `block_route_takes` and `mlp_route_takes` (the block and the
+MLP tail) and `ln_attn_takes` (the attention half) decide, from the
+dtype and the shapes, which calls go to a kernel; models/layers.py asks
+them and nothing else. The block kernel takes bf16 with C, the head width
+and the hidden size multiples of 16 (the tensor cores' tiles);
+`fused_ln_mlp` takes bf16 and, at C <= 384, f32, with C and the hidden
+size multiples of 16. Blocks the block kernel does not take run their
+halves, `fused_ln_attn` (f32 and bf16) and the MLP tail: an f32 block at
+the tracker's width is then seven hand-written kernels. What no kernel
+takes runs the plain version. The wrappers raise for what their kernels
+do not take.
+
+Kernels on the card: `fused_ln_mlp` in bf16 at 384 < C <= 768 (the
+camera's cross-attention tails) runs the wide path, three kernels meeting
+in bf16 scratch the wrapper allocates: the LayerNorm pass (xn, R x C),
+then two tensor-core GEMMs with fused epilogues, h = gelu(xn w1^T + b1)
+(R x M) and out = x + (h w2^T + b2). In bf16 at C <= 384 it is one kernel
+over 64-row tiles; in f32 the same three steps as the wide path, with the
+attention half's CUDA-core GEMM for the products and f32 scratch.
+`fused_ln_attn` is four kernels: the LayerNorm pass (the
 normalized rows and their f32 statistics), the q|k|v GEMM, the attention
 core per (row tile, head), and the out-projection GEMM with the normalized
 residual, spread over the card's SMs by the GEMM tile (csrc/fused_former.cuh).
@@ -42,11 +56,10 @@ import torch.nn.functional as F
 
 # launch_counts, reset_launch_counts: also read through this module
 from vggsfm_tpu_torch.ops import _build, launch_counts, reset_launch_counts  # noqa: F401
-from vggsfm_tpu_torch.utils import mfu
 
 # mirrors the kernels' limits (csrc/fused_former.cuh check_*_shape)
-MAX_C = 384          # whole-block kernel (64-row register tile)
-MAX_WIDE_C = 768     # ln_mlp (32-row tile above 384) and ln_attn
+MAX_C = 384          # whole-block kernel and ln_mlp's 64-row tile
+MAX_WIDE_C = 768     # ln_mlp (the wide path above 384) and ln_attn
 MAX_L = 64
 MAX_HEAD_DIM = 64    # whole-block kernel
 MAX_ATTN_HEAD_DIM = 128
@@ -54,36 +67,32 @@ MAX_ATTN_HEAD_DIM = 128
 # kernels one fused_ln_attn call launches: LayerNorm, q|k|v projection,
 # attention core, out-projection
 ATTN_KERNELS = 4
-# kernels one fused_ln_mlp call launches on the wide path: LayerNorm, fc1 +
-# GELU, fc2 + residual
+# kernels one fused_ln_mlp call launches in f32 and on the wide path:
+# LayerNorm, fc1 + GELU, fc2 + residual
 WIDE_MLP_KERNELS = 3
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def block_kernel_takes(C: int, seq_len: int, num_heads: int) -> bool:
-    """Whether the whole-block kernel takes rows of width C in groups of
-    `seq_len`; beyond it AttnBlock runs its two halves (`ln_attn_takes`,
-    `mlp_route_takes`)."""
-    return (16 <= C <= MAX_C and C % 16 == 0 and 1 <= seq_len <= MAX_L
-            and C % num_heads == 0 and C // num_heads <= MAX_HEAD_DIM)
+def block_route_takes(dtype, C: int, seq_len: int, num_heads: int,
+                      M: int) -> bool:
+    """Whether a pre-LN block (width C, hidden size M, `num_heads` heads,
+    attention within groups of `seq_len` rows) in `dtype` goes to the
+    whole-block kernel; else AttnBlock runs its two halves."""
+    D = C // num_heads
+    return (dtype == torch.bfloat16 and 16 <= C <= MAX_C and C % 16 == 0
+            and 1 <= seq_len <= MAX_L and C % num_heads == 0
+            and D <= MAX_HEAD_DIM and D % 16 == 0 and M % 16 == 0)
 
 
-def mlp_kernel_takes(C: int) -> bool:
-    return 16 <= C <= MAX_WIDE_C and C % 16 == 0
-
-
-def mlp_route_takes(dtype, C: int) -> bool:
-    """Whether a pre-LN MLP tail of width C in `dtype` goes to the
-    fused_ln_mlp kernels. bf16 rows wider than 384 (the camera's
-    cross-attention tails) take the wide path: WIDE_MLP_KERNELS launches
-    per call, a LayerNorm pass and two tensor-core GEMMs (with M a
-    multiple of 16; else one CUDA-core kernel). f32 rows wider than 384
-    stay plain: the kernel's f32 instantiation runs on the CUDA cores,
-    measured ~3x slower than the plain cuBLAS version at C = 384
-    (PERF.md), and the JAX package keeps those tails (the camera's
-    768-wide f32 trunk and self-attention MLPs) on its plain path too."""
-    return mlp_kernel_takes(C) and (dtype == torch.bfloat16 or C <= MAX_C)
+def mlp_route_takes(dtype, C: int, M: int) -> bool:
+    """Whether a pre-LN MLP tail of width C and hidden size M in `dtype`
+    goes to the fused_ln_mlp kernels (in bf16 above C = 384 the wide
+    path). f32 rows wider than 384 (the camera's 768-wide f32 trunk and
+    self-attention tails) stay plain, as the JAX package keeps them."""
+    widest = MAX_WIDE_C if dtype == torch.bfloat16 else MAX_C
+    return (dtype in (torch.bfloat16, torch.float32) and 16 <= C <= widest
+            and C % 16 == 0 and M % 16 == 0)
 
 
 def ln_attn_takes(C: int, seq_len: int, num_heads: int) -> bool:
@@ -155,9 +164,10 @@ def fused_transformer_block_ref(x, w_in, b_in, w_out, b_out, w1, b1, w2,
 
 
 # ----------------------------------------------------------------- FLOPs
-# Each kernel's FLOPs by one formula, charged to the FLOP ledger
-# (utils/mfu.py) by its wrapper on both routes: what FlopCounterMode counts
-# of the plain version, its matrix products (2 FLOPs a multiply-add).
+# Each kernel's FLOPs by one formula: what FlopCounterMode counts of the
+# plain version, its matrix products (2 FLOPs a multiply-add).
+# benchmark/tests/test_bench_work.py holds the benchmark's own copies
+# (benchmark/harness/work.py) to them.
 
 def ln_mlp_flops(R: int, C: int, M: int) -> int:
     """fc1 (R x C x M) and fc2 (R x M x C)."""
@@ -201,26 +211,28 @@ def fused_ln_mlp(x, w1, b1, w2, b2):
 
     x (R, C) float32 or bfloat16; w1 (M, C), b1 (M,), w2 (C, M), b2 (C,)
     of the same dtype. CPU tensors take `fused_ln_mlp_ref`; CUDA tensors
-    launch the kernel (the wide path's WIDE_MLP_KERNELS in bf16 above
-    C = 384) or raise. Returns (R, C) in x's dtype.
+    launch the kernels (WIDE_MLP_KERNELS in f32 and in bf16 above C = 384,
+    else one) where `mlp_route_takes` them, else raise. Returns (R, C) in
+    x's dtype.
     """
     R, C = x.shape
     M = w1.shape[0]
-    if mfu.counting():
-        mfu.add_kernel_flops("fused_ln_mlp", ln_mlp_flops(R, C, M))
     if x.device.type == "cpu":
-        return mfu.plain(fused_ln_mlp_ref, x, w1, b1, w2, b2)
+        return fused_ln_mlp_ref(x, w1, b1, w2, b2)
     _check(x, {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2},
            {"x": (R, C), "w1": (M, C), "b1": (M,), "w2": (C, M),
             "b2": (C,)})
-    if not mlp_kernel_takes(C):
-        raise ValueError(f"fused_ln_mlp kernel takes 16 <= C <= "
-                         f"{MAX_WIDE_C}, C % 16 == 0; got C={C}")
+    if not mlp_route_takes(x.dtype, C, M):
+        raise ValueError(f"fused_ln_mlp kernels take bfloat16 with 16 <= C "
+                         f"<= {MAX_WIDE_C} or float32 with C <= {MAX_C}, "
+                         f"and C, M multiples of 16; got {x.dtype}, C={C}, "
+                         f"M={M}")
     out = torch.empty_like(x)
     if R == 0:
         return out
     lib = _build.load_library()
-    # the wide path's scratch (the normalized rows and the GELU output)
+    # the three-kernel path's scratch (the normalized rows and the GELU
+    # output)
     nbytes = lib.vf_ln_mlp_scratch_bytes(_DTYPES[x.dtype], R, C, M)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) \
         if nbytes else None
@@ -233,7 +245,7 @@ def fused_ln_mlp(x, w1, b1, w2, b2):
     if rc != 0:
         raise RuntimeError(f"fused_ln_mlp kernel launch failed: code {rc}")
     launch_counts["fused_ln_mlp"] += lib.vf_ln_mlp_kernels(_DTYPES[x.dtype],
-                                                           C, M)
+                                                          C)
     return out
 
 
@@ -244,27 +256,26 @@ def fused_transformer_block(x, w_in, b_in, w_out, b_out, w1, b1, w2, b2,
 
     w_in (3C, C), b_in (3C,) packed q|k|v; w_out (C, C), b_out (C,);
     w1 (M, C), b1 (M,), w2 (C, M), b2 (C,). CPU tensors take
-    `fused_transformer_block_ref`; CUDA tensors launch the kernel or raise.
+    `fused_transformer_block_ref`; CUDA tensors launch the kernel where
+    `block_route_takes` them, else raise.
     """
     R, C = x.shape
     M = w1.shape[0]
-    if mfu.counting():
-        mfu.add_kernel_flops("fused_transformer_block",
-                             block_flops(R, C, M, seq_len))
     if x.device.type == "cpu":
-        return mfu.plain(fused_transformer_block_ref, x, w_in, b_in, w_out,
-                         b_out, w1, b1, w2, b2, seq_len, num_heads)
+        return fused_transformer_block_ref(x, w_in, b_in, w_out, b_out, w1,
+                                           b1, w2, b2, seq_len, num_heads)
     _check(x, {"x": x, "w_in": w_in, "b_in": b_in, "w_out": w_out,
                "b_out": b_out, "w1": w1, "b1": b1, "w2": w2, "b2": b2},
            {"x": (R, C), "w_in": (3 * C, C), "b_in": (3 * C,),
             "w_out": (C, C), "b_out": (C,), "w1": (M, C), "b1": (M,),
             "w2": (C, M), "b2": (C,)})
-    if not block_kernel_takes(C, seq_len, num_heads) or R % seq_len:
+    if not block_route_takes(x.dtype, C, seq_len, num_heads, M) \
+            or R % seq_len:
         raise ValueError(
-            f"fused_transformer_block kernel takes 16 <= C <= {MAX_C} "
-            f"(C % 16 == 0), 1 <= L <= {MAX_L}, head dim <= {MAX_HEAD_DIM} "
-            f"and R % L == 0; got R={R}, C={C}, L={seq_len}, "
-            f"H={num_heads}")
+            f"fused_transformer_block kernel takes bfloat16 with 16 <= C <= "
+            f"{MAX_C}, 1 <= L <= {MAX_L}, head dim <= {MAX_HEAD_DIM}, C, "
+            f"the head dim and M multiples of 16, and R % L == 0; got "
+            f"{x.dtype}, R={R}, C={C}, M={M}, L={seq_len}, H={num_heads}")
     out = torch.empty_like(x)
     if R == 0:
         return out
@@ -294,11 +305,9 @@ def fused_ln_attn(x, w_in, b_in, w_out, b_out, seq_len: int, num_heads: int):
     in x's dtype.
     """
     R, C = x.shape
-    if mfu.counting():
-        mfu.add_kernel_flops("fused_ln_attn", ln_attn_flops(R, C, seq_len))
     if x.device.type == "cpu":
-        return mfu.plain(fused_ln_attn_ref, x, w_in, b_in, w_out, b_out,
-                         seq_len, num_heads)
+        return fused_ln_attn_ref(x, w_in, b_in, w_out, b_out, seq_len,
+                                 num_heads)
     _check(x, {"x": x, "w_in": w_in, "b_in": b_in, "w_out": w_out,
                "b_out": b_out},
            {"x": (R, C), "w_in": (3 * C, C), "b_in": (3 * C,),

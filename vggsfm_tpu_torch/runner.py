@@ -71,7 +71,7 @@ from vggsfm_tpu_torch.utils.depth import (
     align_depth_maps_to_sfm,
     write_colmap_array,
 )
-from vggsfm_tpu_torch.utils import mfu, trace
+from vggsfm_tpu_torch.utils import trace
 from vggsfm_tpu_torch.utils.device import resolve_device
 from vggsfm_tpu_torch.utils.precision import f32_matmuls
 from vggsfm_tpu_torch.utils.visualizer import WORKERS as VISUAL_WORKERS
@@ -318,11 +318,10 @@ class VGGSfMRunner:
         minit = self.cfg.matching_init
         mvis = minit and not self._weights_loaded
         with self._stage(stage):
-            preds, vis = mfu.timed_call(
-                "coarse", self.tracker.coarse_predictor, (qp, fmaps),
-                dict(iters=self.cfg.coarse_iters,
-                     down_ratio=self.tracker.coarse_down_ratio,
-                     matching_init=minit, matching_vis=mvis))
+            preds, vis = self.tracker.coarse_predictor(
+                qp, fmaps, iters=self.cfg.coarse_iters,
+                down_ratio=self.tracker.coarse_down_ratio,
+                matching_init=minit, matching_vis=mvis)
         return preds[-1], vis
 
     @torch.inference_mode()
@@ -343,11 +342,10 @@ class VGGSfMRunner:
                                      fmaps_flat_hw=fmaps_flat_hw)
 
         with self._stage("fine"):
-            return mfu.timed_call(
-                "fine", refine_track, (images, fnet, ftrack, coarse),
-                dict(compute_score=True, matching_init=minit,
-                     subpixel_refine=subpix, patch_dtype=tr.dtype,
-                     flat_fnet=True))
+            return refine_track(images, fnet, ftrack, coarse,
+                                compute_score=True, matching_init=minit,
+                                subpixel_refine=subpix, patch_dtype=tr.dtype,
+                                flat_fnet=True)
 
     @torch.inference_mode()
     def select_query_frames(self, images) -> list:
@@ -365,8 +363,7 @@ class VGGSfMRunner:
                 return rank_by_midpoint(S, q)
             if cfg.query_by_interval:
                 return rank_by_interval(S, S // q + 1)[:q]
-            desc = mfu.timed_call("dino_desc",
-                                  self.camera.frame_descriptors, (images,))
+            desc = self.camera.frame_descriptors(images)
             return rank_by_dino_similarity(desc[0], q)[:q]
 
     @torch.inference_mode()
@@ -381,10 +378,10 @@ class VGGSfMRunner:
         with self._stage("camera_init"):
             if self.cfg.avg_pose:
                 return average_camera_prediction(
-                    lambda im: self._camera_call(im)["pred_pose_enc"],
+                    lambda im: self.camera(im, iters=4)["pred_pose_enc"],
                     images, (H, W), query_indices=list(query_indices),
                     model_input_size=self.camera.down_size)
-            pose_enc = self._camera_call(images)["pred_pose_enc"]
+            pose_enc = self.camera(images, iters=4)["pred_pose_enc"]
             return pose_encoding_to_extri_intri(pose_enc[0], (H, W))
 
     @torch.inference_mode()
@@ -393,22 +390,14 @@ class VGGSfMRunner:
         3) images in [0, 1]: the predictor's dict, ``pred_pose_enc``
         (B, S, 8). The JAX runner's `_camera_forward`, which the video
         runner calls per window."""
-        return self._camera_call(self._to_device(images))
-
-    def _camera_call(self, images):
-        """One camera forward, 4 trunk iterations, through the FLOP
-        ledger under ``camera``."""
-        return mfu.timed_call("camera", self.camera, (images,),
-                              dict(iters=4))
+        return self.camera(self._to_device(images), iters=4)
 
     @torch.inference_mode()
     def fmaps(self, images):
         """Coarse feature maps of (B, S, H, W, 3) images in [0, 1]."""
         images = self._to_device(images)
         with self._stage("fmaps"):
-            return mfu.timed_call("fmaps",
-                                  self.tracker.process_images_to_fmaps,
-                                  (images,))
+            return self.tracker.process_images_to_fmaps(images)
 
     @torch.inference_mode()
     def query_points(self, images, query_indices, masks=None,
@@ -594,13 +583,12 @@ class VGGSfMRunner:
         dict of `estimate_preliminary_cameras`."""
         cfg = self.cfg
         with self._stage("preliminary"):
-            return mfu.timed_call(
-                "preliminary", estimate_preliminary_cameras,
-                (track, vis, width, height,
-                 torch.Generator().manual_seed(cfg.seed + 1)),
-                dict(tracks_score=score if cfg.fine_tracking else None,
-                     max_error=cfg.fmat_thres, max_ransac_iters=1024,
-                     lo_num=128, sample_idx=sample_idx))
+            return estimate_preliminary_cameras(
+                track, vis, width, height,
+                torch.Generator().manual_seed(cfg.seed + 1),
+                tracks_score=score if cfg.fine_tracking else None,
+                max_error=cfg.fmat_thres, max_ransac_iters=1024, lo_num=128,
+                sample_idx=sample_idx)
 
     @torch.inference_mode()
     def _choose_camera_init(self, extr_neural, intr_neural, pre, track,
@@ -636,10 +624,8 @@ class VGGSfMRunner:
                     torch.stack([s_n, s_t]))
 
         with self._stage("camera_choice"):
-            return mfu.timed_call(
-                "caminit_select", select,
-                (extr_neural, intr_neural, extr_tv, intr_tv, track, vis,
-                 pre["fmat_inlier_mask"][0]))
+            return select(extr_neural, intr_neural, extr_tv, intr_tv, track,
+                          vis, pre["fmat_inlier_mask"][0])
 
     def sfm_config(self) -> SfmConfig:
         """The solve's options from the runner's."""
@@ -965,7 +951,7 @@ class VGGSfMRunner:
         for s in range(images.shape[1]):
             with f32_matmuls():
                 x = interpolate_bilinear(images[0, s:s + 1], (r, r))
-            d = mfu.timed_call("dpt", model, (x,))
+            d = model(x)
             with f32_matmuls():
                 out.append(interpolate_bilinear(d[..., None], (H, W))[..., 0])
         return torch.cat(out)
@@ -989,12 +975,10 @@ class VGGSfMRunner:
 
         obs = dev("valid_2d_mask", torch.bool) \
             & dev("valid_tracks", torch.bool)[None]
-        depth_maps, a, b, inl = mfu.timed_call(
-            "depth_align", align_depth_maps_to_sfm,
-            (disp, dev("extrinsics"), dev("points3d"),
-             dev("pred_track")[0], obs,
-             torch.Generator().manual_seed(self.cfg.seed + 7)),
-            dict(sample_idx=sample_idx))
+        depth_maps, a, b, inl = align_depth_maps_to_sfm(
+            disp, dev("extrinsics"), dev("points3d"), dev("pred_track")[0],
+            obs, torch.Generator().manual_seed(self.cfg.seed + 7),
+            sample_idx=sample_idx)
         predictions.update(depth_maps=depth_maps,
                            depth_align_coeffs=torch.stack([a, b], dim=-1),
                            depth_inlier_frac=inl)

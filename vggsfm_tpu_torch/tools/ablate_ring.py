@@ -41,10 +41,10 @@ VARIANTS = {
     "no GELU": [("from_f<T>(gelu_erf(h[0][j][e] + to_f<T>(b1[m0 + n])))",
                  "from_f<T>(h[0][j][e] + to_f<T>(b1[m0 + n]))")],
     "no attention": [
-        ("    ring_head_attention<T, BM>(qkv, sc, oh, ldo, rows, L, D, scale);\n",
+        ("    ring_head_attention<bf, BM>(qkv, sc, oh, ldo, rows, L, D, scale);\n",
          "")],
-    "scalar attention": [("    ring_head_attention<T, BM>(qkv, sc, oh, ldo",
-                          "    head_attention<T, BM>(qkv, sc, oh, ldo")],
+    "scalar attention": [("    ring_head_attention<bf, BM>(qkv, sc, oh, ldo",
+                          "    head_attention<bf, BM>(qkv, sc, oh, ldo")],
     # each slab's copies spread over the previous slab's 16-deep steps
     "copies issued in parts": [
         ("void issue(int g) const {",
